@@ -1,0 +1,1 @@
+"""io layer of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""render layer of the PyTorch port (see the package docstring)."""
