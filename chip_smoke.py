@@ -6,10 +6,14 @@ then drive the free-view frame at the flagship width.
 Phases, one line each; any failure ends the run with a non-zero exit:
   1. device  - needs CUDA; prints the card's name and power limit (nvidia-smi)
   2. build   - nvcc builds ide3d_tpu_torch/csrc/ray_march.cu for sm_90a
-  3. kernel  - K1 against its plain version at B=1, R=4096, S=96+96, C=51:
-               fp32 vals (max abs err <= 1e-4), bf16 vals (<= 1e-3), saturated
-               density (finite, wsum = 1 +- 1e-4), and a few other shapes with
-               ties (<= 1e-4); CUDA-event times
+  3. kernel  - K1 against its plain version at B=1, R=4096, S=96+96, C=51,
+               for each option (softplus, relu, last_back, white_back, density
+               noise): fp32 vals (max abs err <= 1e-4), bf16 vals (<= 1e-3);
+               saturated density (finite, wsum = 1 +- 1e-4); other shapes with
+               ties, staged and streamed (<= 1e-4); then K1 and plain timed at
+               B=1 and B=3 (bf16, the frame's shape) from CUDA graphs of many
+               calls, beside the byte bound at 3.35 TB/s, and K1 eager, one
+               call at a time (the wrapper's host time included)
   4. fp32    - GeneratorConfig(dtype="float32") at batch 1 on the card against
                the same weights on the CPU (plain paths), max abs err <= 3e-5
                x the output's scale
@@ -18,6 +22,10 @@ Phases, one line each; any failure ends the run with a non-zero exit:
                values, the K1 launch count, frame time, peak memory; then one
                frame's captured K1 inputs through kernel and plain
 Then one JSON line with the kernels, and last {"ok": true, "device": {...}}.
+In that line `ms` and `plain_ms` are device times per call at B=3 from the
+CUDA graphs; `eager_ms` is the time between CUDA events around one eager call
+and `host_ms` the host's time in that call, medians at B=3; `b1` holds the
+same at B=1.
 """
 
 from __future__ import annotations
@@ -33,24 +41,67 @@ import torch
 
 SEEDS = (0, 1, 2)
 TIMED_RUNS = 25
+HBM_BYTES_PER_MS = 3.35e9  # H100 SXM device memory, 3.35 TB/s
+K1_OPTIONS = (
+    {}, {"clamp_mode": "relu"}, {"last_back": True}, {"white_back": True}, {"noise": True},
+)
 
 
-def _cuda_ms(fn, runs: int = TIMED_RUNS, warmup: int = 3) -> float:
-    """Median time of fn() on the current stream, from CUDA events, in ms."""
-    for _ in range(warmup):
+def graph_ms(fns, calls: int, runs: int = TIMED_RUNS) -> float:
+    """Device time of one call, in ms: the median over `runs` replays of a CUDA
+    graph that holds `calls` calls cycling through `fns`, timed by CUDA events.
+    The graph keeps the host's launch overhead out of the time."""
+    for fn in fns:
         fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(calls):
+            fns[i % len(fns)]()
+    graph.replay()
+    torch.cuda.synchronize()
     times = []
     for _ in range(runs):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        graph.replay()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    # A matmul captured on the graph's stream leaves a cuBLAS workspace
+    # (32 MiB on Hopper) allocated for that stream; free it, or it counts in
+    # the frame's peak memory.
+    torch._C._cuda_clearCublasWorkspaces()
     return statistics.median(times)
 
 
-def _max_err(a, b) -> float:
+def eager_ms(fn, runs: int = TIMED_RUNS) -> tuple[float, float]:
+    """One eager call at a time, the card idle before each: the median time
+    between CUDA events recorded around the call (the wrapper's host time plus
+    the kernel's), and the median host time until the call returns, in ms."""
+    fn()
+    torch.cuda.synchronize()
+    events, host = [], []
+    for _ in range(runs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        fn()
+        host.append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        end.synchronize()
+        events.append(start.elapsed_time(end))
+    return statistics.median(events), statistics.median(host)
+
+
+def k1_bytes(args) -> int:
+    """Bytes K1 must move: each input read once, each output written once."""
+    B, R, _, c1 = args[1].shape
+    return sum(t.numel() * t.element_size() for t in args if t is not None) + B * R * (c1 + 1) * 4
+
+
+def max_err(a, b) -> float:
     return max(float((x.float() - y.float()).abs().max()) for x, y in zip(a, b))
 
 
@@ -82,37 +133,55 @@ def phase_build() -> None:
           f"{' (cached)' if not log else ''}; ptxas: {' | '.join(used) or 'n/a'}", flush=True)
 
 
-def _k1_inputs(gen, dtype, sigma=None):
-    B, R, S, C = 1, 4096, 96, 51
+def k1_inputs(gen, dtype, sigma=None, B=1, sorted_halves=False):
+    """K1's inputs at the frame's shape (R=4096, S=96+96, C=51) on the card.
+    `sorted_halves` gives each half ascending depths, as the deterministic
+    render does; otherwise they are unsorted."""
+    R, S, C = 4096, 96, 51
     dev = "cuda"
 
     def half():
-        z = (torch.rand(B, R, S, 1, generator=gen) * 1.05 + 2.25).to(dev)
+        z = torch.rand(B, R, S, 1, generator=gen) * 1.05 + 2.25
+        if sorted_halves:
+            z = torch.sort(z, dim=2).values
         v = torch.randn(B, R, S, C + 1, generator=gen)
         v[..., -1] = v[..., -1] * 10 if sigma is None else sigma
-        return z, v.to(dev, dtype).contiguous()
+        return z.to(dev), v.to(dev, dtype).contiguous()
 
     (za, va), (zb, vb) = half(), half()
     norm = (torch.rand(B, R, 1, generator=gen) * 0.2 + 0.9).to(dev)
     return za, va, zb, vb, norm
 
 
-def phase_kernel() -> dict:
+def _k1_options(opts, args, gen) -> dict:
+    """Keyword arguments of one K1 option set; noise is drawn for these inputs."""
+    kw = {k: v for k, v in opts.items() if k != "noise"}
+    if opts.get("noise"):
+        B, R = args[0].shape[:2]
+        kw["noise"] = (torch.randn(B, R, args[0].shape[2] + args[2].shape[2], generator=gen)
+                       * 2.0).cuda()
+    return kw
+
+
+def phase_kernel(smi: str) -> dict:
     from ide3d_tpu_torch.ops.ray_march import sort_integrate, sort_integrate_plain
 
     gen = torch.Generator().manual_seed(0)
     errs = {}
     for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-3)):
-        args = _k1_inputs(gen, dtype)
-        got, ref = sort_integrate(*args), sort_integrate_plain(*args)
-        torch.cuda.synchronize()
-        _check_finite("K1 kernel", got)
-        per = [float((g - r).abs().max()) for g, r in zip(got, ref)]
-        if max(per) > tol:
-            raise RuntimeError(f"K1 vs plain ({dtype}): max abs err feat/depth/wsum {per} > {tol}")
-        errs[str(dtype).split(".")[-1]] = per
+        args = k1_inputs(gen, dtype)
+        for opts in K1_OPTIONS:
+            kw = _k1_options(opts, args, gen)
+            got, ref = sort_integrate(*args, **kw), sort_integrate_plain(*args, **kw)
+            torch.cuda.synchronize()
+            _check_finite(f"K1 kernel {opts}", got)
+            per = [float((g - r).abs().max()) for g, r in zip(got, ref)]
+            if max(per) > tol:
+                raise RuntimeError(f"K1 vs plain ({dtype}, {opts}): max abs err "
+                                   f"feat/depth/wsum {per} > {tol}")
+            errs[f"{str(dtype).split('.')[-1]} {','.join(opts) or 'softplus'}"] = max(per)
 
-    sat = _k1_inputs(gen, torch.float32, sigma=100.0)
+    sat = k1_inputs(gen, torch.float32, sigma=100.0)
     feat, depth, wsum = sort_integrate(*sat)
     torch.cuda.synchronize()
     _check_finite("K1 saturated", (feat, depth, wsum))
@@ -120,12 +189,16 @@ def phase_kernel() -> dict:
     if sat_err > 1e-4:
         raise RuntimeError(f"K1 saturated: |wsum - 1| = {sat_err}")
 
-    # Shapes off the main path: uneven halves, 1-sample halves, C+1 up to 256
-    # channels, depths rounded to 1/8 so that many samples tie across halves.
+    # Shapes off the main path, depths rounded to 1/8 so that many samples tie
+    # within and across halves, each with one option set: uneven and 1-sample
+    # halves, C+1 up to 256 (streamed in row chunks), and staged shapes whose
+    # channel sums take 16-byte vectors over 1, 2 or 8 rows or one channel a lane.
     edge_err = 0.0
-    for B, R, sa, sb, C, dtype in ((2, 37, 5, 130, 3, torch.float32), (1, 5, 1, 1, 1, torch.float32),
-                                   (1, 33, 200, 56, 255, torch.float32),
-                                   (3, 100, 96, 96, 51, torch.bfloat16)):
+    for n, (B, R, sa, sb, C, dtype) in enumerate((
+            (2, 37, 5, 130, 3, torch.float32), (1, 5, 1, 1, 1, torch.float32),
+            (1, 33, 200, 56, 255, torch.float32), (3, 100, 96, 96, 51, torch.bfloat16),
+            (2, 45, 8, 16, 8, torch.bfloat16), (2, 50, 32, 32, 159, torch.float32),
+            (1, 40, 8, 12, 3, torch.bfloat16), (2, 70, 64, 128, 51, torch.float32))):
         halves = []
         for s in (sa, sb):
             z = torch.round((torch.rand(B, R, s, 1, generator=gen) * 1.05 + 2.25) * 8) / 8
@@ -133,20 +206,35 @@ def phase_kernel() -> dict:
             halves += [z.cuda(), v.to("cuda", dtype)]
         norm = (torch.rand(B, R, 1, generator=gen) + 0.5).cuda()
         args = (*halves, norm)
-        edge_err = max(edge_err, _max_err(sort_integrate(*args), sort_integrate_plain(*args)))
+        for opts in (K1_OPTIONS[0], K1_OPTIONS[1 + n % (len(K1_OPTIONS) - 1)]):
+            kw = _k1_options(opts, args, gen)
+            edge_err = max(edge_err, max_err(sort_integrate(*args, **kw),
+                                             sort_integrate_plain(*args, **kw)))
     if edge_err > 1e-4:
         raise RuntimeError(f"K1 vs plain off the main path's shapes: max abs err {edge_err}")
 
-    args = _k1_inputs(gen, torch.bfloat16)  # the main path's dtype
-    plain_ms = _cuda_ms(lambda: sort_integrate_plain(*args))
-    ms = _cuda_ms(lambda: sort_integrate(*args))
-    plain_ms2 = _cuda_ms(lambda: sort_integrate_plain(*args))
-    ms2 = _cuda_ms(lambda: sort_integrate(*args))
-    print(f"kernel: K1 max abs err feat/depth/wsum fp32 {errs['float32']} bf16 {errs['bfloat16']}; "
-          f"saturated |wsum-1| {sat_err:.3g}; edge shapes {edge_err:.3g}; bf16 B=1 R=4096 S=192 C=51: kernel {ms:.4f}/{ms2:.4f} ms, "
-          f"plain {plain_ms:.4f}/{plain_ms2:.4f} ms (median of {TIMED_RUNS}, two rounds)", flush=True)
-    return {"max_abs_err": max(edge_err, *(max(v) for v in errs.values())), "ms": min(ms, ms2),
-            "plain_ms": min(plain_ms, plain_ms2)}
+    # Times at the frame's shape and dtype, sorted halves as the frame has them.
+    # Two input sets in turn, so that B=1 (86 MB) does not run from the 50 MB L2.
+    timing = {}
+    for B in (1, 3):
+        sets = [k1_inputs(gen, torch.bfloat16, B=B, sorted_halves=True) for _ in range(2)]
+        kern = [lambda a=a: sort_integrate(*a) for a in sets]
+        plain = [lambda a=a: sort_integrate_plain(*a) for a in sets]
+        t = [graph_ms(kern, 20), graph_ms(plain, 4), graph_ms(plain, 4), graph_ms(kern, 20)]
+        eager, host = eager_ms(kern[0])
+        nbytes = k1_bytes(sets[0])
+        bound_ms = nbytes / HBM_BYTES_PER_MS
+        timing[B] = {"ms": min(t[0], t[3]), "plain_ms": min(t[1], t[2]), "eager_ms": eager,
+                     "host_ms": host, "bytes": nbytes, "bound_ms": bound_ms,
+                     "bound_share": bound_ms / min(t[0], t[3])}
+        print(f"kernel: K1 bf16 B={B} R=4096 S=96+96 C=51: kernel {t[0]:.4f}/{t[3]:.4f} ms, "
+              f"plain {t[1]:.4f}/{t[2]:.4f} ms; {nbytes} B, bound {bound_ms * 1e3:.2f} us at "
+              f"3.35 TB/s, {100 * timing[B]['bound_share']:.1f}% of the bound; eager call "
+              f"{eager:.4f} ms, of it host {host:.4f} ms ({smi})", flush=True)
+        del sets, kern, plain
+    print(f"kernel: K1 vs plain max abs err {errs}; saturated |wsum-1| {sat_err:.3g}; "
+          f"edge shapes {edge_err:.3g}", flush=True)
+    return {"max_abs_err": max(edge_err, sat_err, *errs.values()), "timing": timing}
 
 
 def phase_fp32() -> None:
@@ -223,36 +311,44 @@ def phase_frame() -> dict:
     # One frame's K1 inputs, captured at the renderer's call, through kernel and plain.
     captured = []
 
-    def capture(*args):
-        captured.append(args)
-        return ray_march.sort_integrate(*args)
+    def capture(*args, **kw):
+        captured.append((args, kw))
+        return ray_march.sort_integrate(*args, **kw)
 
     renderer.sort_integrate = capture
     try:
         gen_images.synth_views(G, ws[SEEDS[0]], cams, rp)
     finally:
         renderer.sort_integrate = ray_march.sort_integrate
-    (args,) = captured
+    ((args, kw),) = captured
     with torch.inference_mode():
-        frame_err = _max_err(ray_march.sort_integrate(*args), ray_march.sort_integrate_plain(*args))
+        frame_err = max_err(ray_march.sort_integrate(*args, **kw),
+                            ray_march.sort_integrate_plain(*args, **kw))
     if frame_err > 1e-3:
         raise RuntimeError(f"K1 vs plain on a frame's inputs: max abs err {frame_err}")
+    # Rays whose coarse / fine half arrives sorted take the binary-search rank.
+    sorted_share = [float((z[:, :, 1:] >= z[:, :, :-1]).all(2).float().mean())
+                    for z in (args[0], args[2])]
+    with torch.inference_mode():
+        k1_frame_ms = graph_ms([lambda: ray_march.sort_integrate(*args, **kw)], 20)
 
     print(f"frame: GeneratorConfig() bf16 96+96, batch of 3 yaws x {len(SEEDS)} seeds: "
           f"img {tuple(outs[0][0].shape)} seg {tuple(outs[0][1].shape)} finite; "
           f"frame ms {[round(t, 3) for t in times]} median {statistics.median(times):.3f}; "
           f"peak {peak_gib:.3f} GiB; init {init_s:.1f} s; K1 launches {launches}; "
           f"K1 on captured frame inputs (vals {args[1].dtype}, {tuple(args[1].shape)}+"
-          f"{tuple(args[3].shape)}) max abs err vs plain {frame_err:.3g}", flush=True)
-    return {"launches": launches, "frame_err": frame_err}
+          f"{tuple(args[3].shape)}) max abs err vs plain {frame_err:.3g}, "
+          f"{k1_frame_ms:.4f} ms; rays with a sorted coarse / fine half {sorted_share}", flush=True)
+    return {"launches": launches, "frame_err": frame_err, "k1_frame_ms": k1_frame_ms}
 
 
 def main() -> None:
-    phase_device()
+    smi = phase_device()
     phase_build()
-    k = phase_kernel()
+    k = phase_kernel(smi.splitlines()[0])
     phase_fp32()
     f = phase_frame()
+    main_path, b1 = k["timing"][3], k["timing"][1]  # the frame runs K1 at B=3
     print(json.dumps({"kernels": [{
         "name": "sort_integrate",
         "route": "cuda",
@@ -260,8 +356,17 @@ def main() -> None:
         "replaces": "ide3d_tpu/ops/pallas/ray_march.py:121",
         "launches": f["launches"],
         "max_abs_err": max(k["max_abs_err"], f["frame_err"]),
-        "ms": k["ms"],
-        "plain_ms": k["plain_ms"],
+        "ms": main_path["ms"],
+        "plain_ms": main_path["plain_ms"],
+        "eager_ms": main_path["eager_ms"],
+        "host_ms": main_path["host_ms"],
+        "bound_ms": main_path["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "bytes": main_path["bytes"],
+        "bound_share": main_path["bound_share"],
+        "b1": b1,
+        "ms_on_frame_inputs": f["k1_frame_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

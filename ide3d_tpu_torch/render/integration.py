@@ -4,8 +4,8 @@ Counterpart of ide3d_tpu/render/integration.py. Compositing runs in fp32
 whatever the feature dtype. The JAX package replaces sorts and searchsorted by
 comparison matrices and one-hot matmuls, for the TPU; here they are
 torch.sort, torch.searchsorted and gathers, which compute the same values.
-The merged fine composite of the main path is K1 (ops/ray_march.py);
-`integrate_rays_merged` serves the options K1 does not take.
+The merged fine composite of `render_fine` is K1 (ops/ray_march.py), for
+every option; `integrate_rays_merged` is the counterpart of the JAX function.
 """
 
 from __future__ import annotations
@@ -89,8 +89,11 @@ def integrate_rays_merged(
     weights in the INPUT sample order."""
     z = z_vals[..., 0].float()
     zs, order = torch.sort(z, dim=-1, stable=True)
-    sigmas = torch.gather(feats_sigma[..., -1].float(), -1, order)
-    density = _density(sigmas, clamp_mode, noise_std, generator)
+    sigmas = feats_sigma[..., -1].float()
+    if generator is not None and noise_std > 0:  # in input order, as the JAX function
+        sigmas = sigmas + torch.randn(sigmas.shape, generator=generator,
+                                      device=sigmas.device) * noise_std
+    density = _density(torch.gather(sigmas, -1, order), clamp_mode, 0.0, None)
 
     big = 1e10
     nxt = torch.cat([zs[..., 1:], torch.full_like(zs[..., :1], big)], dim=-1)

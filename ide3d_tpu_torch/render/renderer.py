@@ -8,8 +8,9 @@ Counterpart of ide3d_tpu/render/renderer.py, with the same contract:
     same weights over the merged, unsorted coarse + fine samples,
   * ray segment [2.25, 3.3], fov 18 deg, render size 64, 96 + 96 samples.
 
-The merged composite is K1 (ops/ray_march.sort_integrate): the CUDA kernel on
-the card, its plain version on the CPU. Planes keep the JAX layout
+The merged composite is K1 (ops/ray_march.sort_integrate) for every option
+(clamp mode, density noise, last_back, white_back): the CUDA kernel on the
+card, its plain version on the CPU. Planes keep the JAX layout
 [B, H, W, 3*C]; randomness enters through an explicit torch.Generator.
 """
 
@@ -26,7 +27,7 @@ from ..ops.bias_act import bias_act
 from ..ops.grid_sample import sample_from_triplane
 from ..ops.ray_march import sort_integrate
 from .camera import get_initial_rays, perturb_z_vals, transform_rays_to_world
-from .integration import integrate_rays, integrate_rays_merged, sample_pdf
+from .integration import integrate_rays, sample_pdf
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,12 +44,6 @@ class RenderParams:
     nerf_noise: float = 0.0
     last_back: bool = False
     white_back: bool = False
-
-    def k1_takes(self, generator: Optional[torch.Generator] = None) -> bool:
-        """True when the fine composite is K1's: softplus clamp, no last_back /
-        white_back, and no density noise (noise needs a generator)."""
-        return (self.clamp_mode == "softplus" and not self.last_back and not self.white_back
-                and (generator is None or self.nerf_noise == 0.0))
 
 
 class TriplaneRenderer(nn.Module):
@@ -161,22 +156,17 @@ class TriplaneRenderer(nn.Module):
             fine_pts = st["origins"][:, :, None, :] + st["dirs"][:, :, None, :] * fine_z
             fine = self._sample_52(st["table"], fine_pts.reshape(B, Rr * F_, 3))
             fine = fine.reshape(B, Rr, F_, self.out_channels)
-            if rp.k1_takes(gen):
-                ray_norm = torch.linalg.vector_norm(rays_d_cam.float(), dim=-1, keepdim=True)
-                comp, depth, wsum = sort_integrate(
-                    z_vals.float().contiguous(), coarse.contiguous(),
-                    fine_z.float().contiguous(), fine.contiguous(), ray_norm.contiguous())
-            elif coarse.is_cuda:
-                raise NotImplementedError(
-                    "the fine composite on CUDA runs K1 only: softplus clamp, no noise, "
-                    "no last_back / white_back")
-            else:
-                comp, depth, weights = integrate_rays_merged(
-                    torch.cat([coarse, fine], dim=-2), rays_d_cam,
-                    torch.cat([z_vals, fine_z], dim=-2), generator=gen,
-                    noise_std=rp.nerf_noise, clamp_mode=rp.clamp_mode,
-                    last_back=rp.last_back, white_back=rp.white_back)
-                wsum = weights.sum(dim=-2)
+            noise = None
+            if gen is not None and rp.nerf_noise > 0:
+                # The draw of integrate_rays_merged: [B, R, S+F], input order.
+                noise = torch.randn((B, Rr, S + F_), generator=gen,
+                                    device=coarse.device) * rp.nerf_noise
+            ray_norm = torch.linalg.vector_norm(rays_d_cam.float(), dim=-1, keepdim=True)
+            comp, depth, wsum = sort_integrate(
+                z_vals.float().contiguous(), coarse.contiguous(),
+                fine_z.float().contiguous(), fine.contiguous(), ray_norm.contiguous(),
+                noise=noise, clamp_mode=rp.clamp_mode, last_back=rp.last_back,
+                white_back=rp.white_back)
         else:
             comp, depth, weights = integrate_rays(
                 coarse, rays_d_cam, z_vals, generator=gen, noise_std=rp.nerf_noise,

@@ -3,9 +3,14 @@ the JAX package, on the CPU, in fp32. Inputs are made with numpy from a seed.
 
 K1 (ops/ray_march.py) on a CPU tensor runs its plain version; it is held to
 `sort_integrate_pallas(..., interpret=True)` at tests/test_pallas.py's shapes
-and tolerance (atol 3e-4), and to `integrate_rays_merged` on unsorted samples.
-The CUDA kernel itself is checked on the card by chip_smoke.py.
+and tolerance (atol 3e-4), and to `integrate_rays_merged` on unsorted samples
+for each option of the fine composite. The index arithmetic of the CUDA
+kernel's ranking is replayed in numpy. The kernel itself, with each launch
+plan it makes (staged or streamed, vector or scalar channel sums), is held to
+the plain version on the card by tests/test_torch_cuda.py and chip_smoke.py.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -170,6 +175,90 @@ def test_k1_plain_matches_integrate_rays_merged():
         close(g.numpy(), r, atol=3e-5)
 
 
+K1_OPTIONS = [
+    dict(), dict(clamp_mode="relu"), dict(last_back=True), dict(white_back=True),
+    dict(noise=True), dict(clamp_mode="relu", last_back=True, white_back=True, noise=True),
+]
+
+
+@pytest.mark.parametrize("halves", [(12, 12), (5, 19), (1, 1)])
+@pytest.mark.parametrize("opts", K1_OPTIONS)
+def test_k1_plain_options_match_integrate_rays_merged(opts, halves):
+    """Each option of the fine composite, on unsorted halves with ties forced
+    within and across them (depths on a 1/8 grid)."""
+    opts = dict(opts)
+    rng = np.random.RandomState(7)
+    (sa, sb), B, R, C = halves, 2, 24, 6
+    za, zb = (np.round((rng.rand(B, R, s, 1) * 1.05 + 2.25) * 8).astype(np.float32) / 8
+              for s in halves)
+    va = rng.randn(B, R, sa, C + 1).astype(np.float32) * 3
+    vb = rng.randn(B, R, sb, C + 1).astype(np.float32) * 3
+    d = rng.randn(B, R, 3).astype(np.float32)
+    noise = rng.randn(B, R, sa + sb).astype(np.float32) * 0.5 if opts.pop("noise", False) else None
+    fs = np.concatenate([va, vb], 2)
+    if noise is not None:
+        fs[..., -1] += noise
+    comp, depth, w = jint.integrate_rays_merged(
+        jnp.asarray(fs), jnp.asarray(d), jnp.asarray(np.concatenate([za, zb], 2)), **opts)
+    norm = np.linalg.norm(d, axis=-1, keepdims=True)
+    got = ray_march.sort_integrate(t(za), t(va), t(zb), t(vb), t(norm),
+                                   noise=None if noise is None else t(noise), **opts)
+    for g, r in zip(got, (comp, depth, np.asarray(w).sum(-2))):
+        assert torch.isfinite(g).all()
+        close(g.numpy(), r, atol=3e-5)
+
+
+def _replay_rank(za, zb):
+    """The kernel's rank_items: an unsorted half is counted by comparison; a
+    sorted half ranks its own samples by index and is binary-searched, in
+    bit_length(max(Sa, Sb)) steps, by the other half's samples."""
+    sa, sb = len(za), len(zb)
+    z, S, big = np.concatenate([za, zb]), sa + sb, np.iinfo(np.int32).max
+    srt = [bool(np.all(h[:-1] <= h[1:])) for h in (za, zb)]
+
+    def before(zh, j, x, thr):
+        return zh[j] < x or (zh[j] == x and j < thr)
+
+    rank = np.zeros(S, np.int64)
+    for h, (zh, first) in enumerate(((za, 0), (zb, sa))):
+        if not srt[h]:
+            for i in range(S):
+                own = first <= i < first + len(zh)
+                thr = i - first if own else (big if h == 0 else 0)
+                rank[i] += sum(before(zh, j, z[i], thr) for j in range(len(zh)))
+    for i in range(S):
+        in_a = i < sa
+        if srt[0 if in_a else 1]:
+            rank[i] += i if in_a else i - sa
+        if srt[1 if in_a else 0]:
+            arr, thr = (zb, 0) if in_a else (za, big)
+            lo, ln = 0, len(arr)
+            for _ in range(max(sa, sb).bit_length()):
+                if ln > 0:
+                    half = ln >> 1
+                    if before(arr, lo + half, z[i], thr):
+                        lo, ln = lo + half + 1, ln - half - 1
+                    else:
+                        ln = half
+            assert ln == 0
+            rank[i] += lo
+    return rank
+
+
+@pytest.mark.parametrize("sort_a,sort_b", [(True, True), (True, False), (False, True), (False, False)])
+def test_k1_rank_replay_is_the_stable_order(sort_a, sort_b):
+    rng = np.random.RandomState(8)
+    for sa, sb in ((96, 96), (5, 130), (1, 1), (7, 3)):
+        za = np.round(rng.rand(sa) * 8).astype(np.float32) / 8
+        zb = np.round(rng.rand(sb) * 8).astype(np.float32) / 8
+        za = np.sort(za) if sort_a else za
+        zb = np.sort(zb) if sort_b else zb
+        order = np.argsort(np.concatenate([za, zb]), kind="stable")
+        expect = np.empty_like(order)
+        expect[order] = np.arange(sa + sb)
+        np.testing.assert_array_equal(_replay_rank(za, zb), expect)
+
+
 def test_k1_wrapper_refuses_what_the_kernel_does_not_take():
     z, v = torch.zeros(1, 4, 3, 1), torch.zeros(1, 4, 3, 5)
     n = torch.ones(1, 4, 1)
@@ -183,6 +272,15 @@ def test_k1_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         big = torch.zeros(1, 4, 200, 1)
         ray_march._check(big, torch.zeros(1, 4, 200, 5), big, torch.zeros(1, 4, 200, 5), n)
+    ray_march._check(z, v, z, v, n, noise=torch.zeros(1, 4, 6))
+    with pytest.raises(ValueError):
+        ray_march._check(z, v, z, v, n, noise=torch.zeros(1, 4, 3))
+    with pytest.raises(TypeError):
+        ray_march._check(z, v, z, v, n, noise=torch.zeros(1, 4, 6, dtype=torch.bfloat16))
+    with pytest.raises(ValueError):
+        ray_march._check(z, v, z, v, n, noise=torch.zeros(1, 6, 4).transpose(1, 2))
+    with pytest.raises(ValueError):
+        ray_march._check(z, v, z, v, n, clamp_mode="exp")
     with pytest.raises(NotImplementedError):
         ray_march.sort_integrate(*(x.to("meta") for x in (z, v, z, v, n)))
 
@@ -212,10 +310,14 @@ def test_decode_and_sample_voxel(renderer_pair):
     close(got.detach().numpy(), ref)
 
 
-@pytest.mark.parametrize("opts", [dict(), dict(white_back=True), dict(hierarchical=False)])
+@pytest.mark.parametrize("opts", [
+    dict(), dict(white_back=True), dict(hierarchical=False), dict(clamp_mode="relu"),
+    dict(last_back=True), dict(clamp_mode="relu", last_back=True, white_back=True),
+])
 @torch.inference_mode()
 def test_render_matches_jax(renderer_pair, opts):
-    """The deterministic render (coarse pass, sample_pdf, fine pass, composite)."""
+    """The deterministic render (coarse pass, sample_pdf, fine pass, composite);
+    the fine composite is the plain K1 for every option."""
     jr, params, tr, (img_v, seg_v) = renderer_pair
     c2w = np.array(jcam.look_at_pose(1.7, 1.5, [0.0, 0.0, 0.0], radius=2.7, batch_size=2))
     c2w[1] = np.asarray(jcam.look_at_pose(1.3, 1.6, [0.0, 0.0, 0.0], radius=2.7))[0]
@@ -225,3 +327,30 @@ def test_render_matches_jax(renderer_pair, opts):
     got = tr.render(t(img_v), t(seg_v), t(c2w), RenderParams(img_size=8, num_steps=10, **opts))
     for key in ("feature", "seg", "depth", "weights_sum"):
         close(got[key].numpy(), ref[key], atol=1e-4)
+
+
+@torch.inference_mode()
+def test_render_fine_noise_is_the_draw_of_integrate_rays_merged(renderer_pair):
+    """With a generator and density noise, render_fine (K1) gives what
+    integrate_rays_merged gives from the same generator state."""
+    _, _, tr, (img_v, seg_v) = renderer_pair
+    c2w = np.array(jcam.look_at_pose(1.7, 1.5, [0.0, 0.0, 0.0], radius=2.7, batch_size=2))
+    rp = RenderParams(img_size=8, num_steps=10, nerf_noise=0.7, last_back=True)
+    gen = torch.Generator().manual_seed(3)
+    st = tr.render_coarse(t(img_v), t(seg_v), t(c2w), rp, generator=gen)
+    state = gen.get_state()
+    got = tr.render_fine(st, rp)
+    gen.set_state(state)
+    comp, depth, w = tint.integrate_rays_merged(
+        torch.cat([st["coarse"], tr._sample_52(st["table"], (
+            st["origins"][:, :, None, :] + st["dirs"][:, :, None, :] * st["fine_z"]
+        ).reshape(2, -1, 3)).reshape(2, 64, 10, -1)], dim=-2),
+        st["rays_d_cam"], torch.cat([st["z_vals"], st["fine_z"]], dim=-2), generator=gen,
+        noise_std=rp.nerf_noise, last_back=True)
+    close(got["feature"].reshape(2, 64, -1).numpy(), comp[..., :8].numpy(), atol=1e-5)
+    close(got["seg"].reshape(2, 64, -1).numpy(), comp[..., 8:].numpy(), atol=1e-5)
+    close(got["depth"].reshape(2, 64, 1).numpy(), depth.numpy(), atol=1e-5)
+    close(got["weights_sum"].reshape(2, 64, 1).numpy(), w.sum(-2).numpy(), atol=1e-5)
+    gen.set_state(state)
+    other = tr.render_fine(st, dataclasses.replace(rp, nerf_noise=0.0))
+    assert not torch.allclose(other["feature"], got["feature"])
