@@ -21,6 +21,18 @@ Phases, one line each; any failure ends the run with a non-zero exit:
                three-yaw batch of gen_images for a few seeds; shapes, finite
                values, the K1 launch count, frame time, peak memory; then one
                frame's captured K1 inputs through kernel and plain
+  6. painter - phase 5's G with HybridEncoder(512, 10, 8, bf16).init(seed=1)
+               behind PainterWebApp(PainterSession(...)), driven through
+               handle() (no socket): meta, seed, two cached views, a new-view
+               edit, two strokes, a view of the edited latent, a 12-frame orbit.
+               Each request: status 200, 512^2 PNGs, finite images, and its
+               exact K1 launches and generate_planes calls. A warm-up round
+               with the finiteness checks, then timed rounds (wall time per
+               route, PNG encoding included); CUDA-event times of a stroke, an
+               uncached edit, a cached view and E alone; a cached view against
+               G.synthesis (<= 1e-3), a stroke against the uncached edit
+               (rec_ws <= 1e-3, uint8 within 1), the fp32 encoder on the card
+               against the CPU (<= 3e-5 x scale)
 Then one JSON line with the kernels, and last {"ok": true, "device": {...}}.
 In that line `ms` and `plain_ms` are device times per call at B=3 from the
 CUDA graphs; `eager_ms` is the time between CUDA events around one eager call
@@ -339,7 +351,253 @@ def phase_frame() -> dict:
           f"K1 on captured frame inputs (vals {args[1].dtype}, {tuple(args[1].shape)}+"
           f"{tuple(args[3].shape)}) max abs err vs plain {frame_err:.3g}, "
           f"{k1_frame_ms:.4f} ms; rays with a sorted coarse / fine half {sorted_share}", flush=True)
-    return {"launches": launches, "frame_err": frame_err, "k1_frame_ms": k1_frame_ms}
+    return {"launches": launches, "frame_err": frame_err, "k1_frame_ms": k1_frame_ms}, G
+
+
+# The Painter's requests, in order: (route, method, path, query, payload,
+# K1 launches, generate_planes calls). Every G pass launches K1 once; a view
+# of the latent whose planes are cached generates none. "mask" payloads get
+# the painted mask of that step.
+PAINTER_REQUESTS = (
+    ("meta", "GET", "/api/meta", None, None, 0, 0),
+    ("seed", "POST", "/api/seed", None, {"seed": 3, "trunc": 0.7}, 1, 1),
+    ("cached view", "GET", "/api/view", {"yaw": "0.3"}, None, 1, 0),
+    ("cached view", "GET", "/api/view", {"yaw": "-0.3"}, None, 1, 0),
+    ("uncached edit", "POST", "/api/edit", None, {"mask": 0, "yaw": 0.1}, 2, 2),
+    ("stroke", "POST", "/api/edit", None, {"mask": 1, "yaw": 0.1}, 1, 1),
+    ("stroke", "POST", "/api/edit", None, {"mask": 2, "yaw": 0.1}, 1, 1),
+    ("view of edited latent", "GET", "/api/view", {"yaw": "0.1"}, None, 1, 1),
+    ("orbit", "POST", "/api/orbit", None, {"type": "orbit", "stride": 10}, 12, 1),
+)
+PAINTER_ROUNDS = 3  # timed rounds of PAINTER_REQUESTS after the warm-up round
+EVENT_RUNS = 7  # session calls timed by CUDA events, per kind
+
+
+def painter_masks(seg_ids: np.ndarray, R: int) -> list:
+    """The seed's class ids with a hair rectangle (class 13), then two more
+    strokes on top: skin, then hair again."""
+    m = [seg_ids.reshape(R, R).copy()]
+    m[0][R // 8: R // 2, R // 4: 3 * R // 4] = 13
+    for cls, box in ((1, (R // 2, 5 * R // 8, R // 3, R // 2)), (13, (R // 16, R // 8, R // 3, 2 * R // 3))):
+        m.append(m[-1].copy())
+        m[-1][box[0]:box[1], box[2]:box[3]] = cls
+    return m
+
+
+def _decode_png(b64: str, R: int) -> None:
+    import base64
+    import io
+
+    import PIL.Image
+
+    img = PIL.Image.open(io.BytesIO(base64.b64decode(b64)))
+    img.load()
+    if img.size != (R, R):
+        raise RuntimeError(f"painter: PNG of size {img.size}, want {(R, R)}")
+
+
+def painter_round(app, counts: dict, check: bool) -> list:
+    """PAINTER_REQUESTS once through app.handle, every count set to 0 before
+    each request and read after it. Returns [(route, wall ms, K1, planes)] and
+    the orbit video's file type."""
+    import base64
+
+    from ide3d_tpu_torch.apps import painter
+    from ide3d_tpu_torch.ops import ray_march
+
+    R = app.session.G.cfg.img_resolution
+    finite, masks, rows, ext = [], None, [], None
+    to_u8 = painter._img_u8
+    if check:  # every image a request renders, before its uint8 conversion
+        painter._img_u8 = lambda img: (finite.append(torch.isfinite(img).all()), to_u8(img))[1]
+    try:
+        for route, method, path, query, payload, k1, planes in PAINTER_REQUESTS:
+            if payload is not None and "mask" in payload:
+                payload = dict(payload, mask=base64.b64encode(masks[payload["mask"]].reshape(-1)).decode())
+            body = json.dumps(payload).encode() if payload is not None else b""
+            ray_march.sort_integrate.launches = counts["planes"] = 0
+            t0 = time.perf_counter()
+            status, ctype, reply = app.handle(method, path, query or {}, body)
+            ms = (time.perf_counter() - t0) * 1e3
+            got = (ray_march.sort_integrate.launches, counts["planes"])
+            if status != 200:
+                raise RuntimeError(f"painter {route}: status {status}: {reply[:300]!r}")
+            if got != (k1, planes):
+                raise RuntimeError(f"painter {route}: K1 launches, generate_planes calls {got}, "
+                                   f"want {(k1, planes)}")
+            out = json.loads(reply)
+            rows.append((route, ms, k1, planes))
+            if "render" in out:
+                _decode_png(out["render"], R)
+            if "seg_ids" in out and len(base64.b64decode(out["seg_ids"])) != R * R:
+                raise RuntimeError(f"painter {route}: seg_ids are not {R}x{R}")
+            if route == "seed":
+                masks = painter_masks(np.frombuffer(base64.b64decode(out["seg_ids"]), np.uint8), R)
+            if route == "meta" and out["resolution"] != R:
+                raise RuntimeError(f"painter meta: resolution {out['resolution']}")
+            if route == "orbit":
+                if out["frames"] != 12:
+                    raise RuntimeError(f"painter orbit: {out['frames']} frames, want 12")
+                ext = out["ext"]
+                if out["ext"] == "gif":
+                    import io
+
+                    import PIL.Image
+
+                    gif = PIL.Image.open(io.BytesIO(base64.b64decode(out["video"])))
+                    if gif.n_frames != 12 or gif.size != (R, R):
+                        raise RuntimeError(f"painter orbit: GIF {gif.n_frames} x {gif.size}")
+    finally:
+        painter._img_u8 = to_u8
+    if check:
+        images = sum(12 if r[0] == "orbit" else r[0] != "meta" for r in PAINTER_REQUESTS)
+        if len(finite) != images or not all(bool(f) for f in finite):
+            raise RuntimeError(f"painter: {len(finite)} images, finite {[bool(f) for f in finite]}")
+        _check_finite("painter latent", [app.session.w])
+    return rows, ext
+
+
+def event_median_ms(fn, runs: int = EVENT_RUNS) -> float:
+    """Median time between CUDA events around one call, the card idle before each."""
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def phase_painter(G, smi: str) -> dict:
+    import copy
+
+    from ide3d_tpu_torch.apps.painter import PainterSession
+    from ide3d_tpu_torch.apps.web_ui import PainterWebApp
+    from ide3d_tpu_torch.models.encoder import HybridEncoder
+    from ide3d_tpu_torch.utils.seg import COLOR_MAP, mask2onehot
+
+    R = G.cfg.img_resolution
+    n_geo = G.synthesis.num_ws_geo  # 8 geometry rows, 10 appearance rows, as web_ui builds E
+    t0 = time.perf_counter()
+    E = HybridEncoder(size=R, n_latents_app=G.num_ws - n_geo, n_latents_geo=n_geo,
+                      dtype=G.cfg.dtype).init(seed=1)
+    sess = PainterSession(G=G, E=E.to("cuda").eval(), device="cuda")
+    app = PainterWebApp(sess)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    S = G.synthesis
+    counts = {"planes": 0}
+    generate_planes = S.generate_planes
+
+    def counted_planes(*args, **kw):
+        counts["planes"] += 1
+        return generate_planes(*args, **kw)
+
+    S.generate_planes = counted_planes
+    try:
+        _, video_ext = painter_round(app, counts, check=True)  # warm-up, finiteness checks
+        torch.cuda.reset_peak_memory_stats()
+        rounds = [painter_round(app, counts, check=False)[0] for _ in range(PAINTER_ROUNDS)]
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        del S.generate_planes
+    wall, launches = {}, {}
+    for rows in rounds:
+        for route, ms, k1, _ in rows:
+            wall.setdefault(route, []).append(ms)
+            launches[route] = k1
+    wall_med = {route: statistics.median(v) for route, v in wall.items()}
+    k1_round = sum(r[2] for r in rounds[0])
+
+    # Session calls alone, CUDA events: stroke (E + 1 G), uncached edit (E + 2 G),
+    # cached view (1 G), E alone.
+    masks = painter_masks(np.zeros(R * R, np.uint8), R)  # all background, then strokes
+    sess.set_seed(3)
+    sess.edit(masks[0], 0.1)
+    ev = {"stroke": event_median_ms(lambda: sess.edit(masks[1], 0.1))}
+
+    def uncached():
+        sess._frame_cache = None
+        sess.edit(masks[1], 0.1)
+
+    ev["uncached edit"] = event_median_ms(uncached)
+    sess.view(0.2)
+    ev["cached view"] = event_median_ms(lambda: sess.view(0.2))
+    gen_img = sess._frame_cache[2]
+    seg_pm = mask2onehot(torch.from_numpy(masks[2]).cuda()[None]) * 2.0 - 1.0
+    with torch.inference_mode():
+        ev["E"] = event_median_ms(lambda: E(gen_img, seg_pm))
+
+    # A cached view against the uncached frame of the same ws and c.
+    sess.view(0.3)
+    with torch.inference_mode():
+        ref = G.synthesis(sess.w, sess.camera(0.3), return_seg=True)[0]
+    view_err = float((sess._frame_cache[2] - ref).abs().max())
+    _check_finite("painter cached view", [ref])
+    if view_err > 1e-3:
+        raise RuntimeError(f"painter: cached view vs G.synthesis max abs err {view_err} > 1e-3")
+
+    # A stroke (frame cache) against the same edit without the frame cache.
+    def edit_pair(use_cache):
+        sess.set_seed(3)
+        sess.edit(masks[0], 0.1)
+        if not use_cache:
+            sess._frame_cache = None
+        rgb, seg = sess.edit(masks[1], 0.1)
+        return rgb.astype(np.int32), seg.astype(np.int32), sess.w.clone()
+
+    (rgb_c, seg_c, w_c), (rgb_u, seg_u, w_u) = edit_pair(True), edit_pair(False)
+    _check_finite("painter stroke", [w_c, w_u])
+    stroke_err = {"rec_ws": float((w_c - w_u).abs().max()),
+                  "rgb": int(np.abs(rgb_c - rgb_u).max()), "seg": int(np.abs(seg_c - seg_u).max())}
+    if stroke_err["rec_ws"] > 1e-3 or stroke_err["rgb"] > 1 or stroke_err["seg"] > 1:
+        raise RuntimeError(f"painter: stroke vs uncached edit {stroke_err}")
+
+    # The web UI's colour -> class-id inversion of a 512^2 seg, against the
+    # nearest-colour search of the JAX package's web UI: same ids, host ms each.
+    seg_color = sess.view(0.0)[1]
+    t0 = time.perf_counter()
+    ids = PainterWebApp._seg_ids(seg_color)
+    lookup_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    pal = COLOR_MAP.astype(np.int32)
+    nearest = np.abs(seg_color.astype(np.int32)[:, :, None, :] - pal).sum(-1).argmin(-1)
+    search_ms = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(ids, nearest.reshape(-1)):
+        raise RuntimeError("painter: palette lookup and nearest-colour search disagree")
+
+    # The fp32 encoder at batch 1, card against CPU on the same weights (TF32 off).
+    E32 = HybridEncoder(size=R, n_latents_app=G.num_ws - n_geo, n_latents_geo=n_geo).init(seed=1)
+    rng = np.random.RandomState(0)
+    img = torch.from_numpy(rng.uniform(-1, 1, (1, R, R, 3)).astype(np.float32))
+    seg = mask2onehot(torch.from_numpy(rng.randint(0, 19, (1, R, R)))) * 2.0 - 1.0
+    with torch.inference_mode():
+        e_ref = E32(img, seg)
+        e_got = copy.deepcopy(E32).cuda()(img.cuda(), seg.cuda()).cpu()
+    _check_finite("fp32 encoder", [e_got])
+    e_scale = max(1.0, float(e_ref.abs().max()))
+    e_err = float((e_got - e_ref).abs().max())
+    if e_err > 3e-5 * e_scale:
+        raise RuntimeError(f"painter: fp32 encoder cuda vs cpu max abs err {e_err}, scale {e_scale}")
+
+    print(f"painter: {smi}; G {R}^2 {G.cfg.dtype} + HybridEncoder({R}, {G.num_ws - n_geo}, "
+          f"{n_geo}, {G.cfg.dtype}) through "
+          f"PainterWebApp.handle, {PAINTER_ROUNDS} rounds after a warm-up; wall ms per route "
+          f"(median, PNG encoding included) {json.dumps({k: round(v, 3) for k, v in wall_med.items()})} "
+          f"(samples {json.dumps({k: len(v) for k, v in wall.items()})}); "
+          f"CUDA-event ms of the session call (median of {EVENT_RUNS}) "
+          f"{json.dumps({k: round(v, 3) for k, v in ev.items()})}; peak {peak_gib:.3f} GiB; "
+          f"init {init_s:.1f} s; K1 launches per request {json.dumps(launches)}, "
+          f"{k1_round} a round, generate_planes as listed; orbit video .{video_ext}; seg colour -> "
+          f"ids {lookup_ms:.3f} ms (nearest-colour search {search_ms:.3f} ms); cached view vs G.synthesis "
+          f"{view_err:.3g}; stroke vs uncached edit {stroke_err}; fp32 E cuda vs cpu "
+          f"{e_err:.3g} at scale {e_scale:.3g}", flush=True)
+    return {"launches": launches, "per_round": k1_round, "wall_ms": wall_med, "event_ms": ev,
+            "peak_gib": peak_gib, "max_abs_err": max(view_err, stroke_err["rec_ws"])}
 
 
 def main() -> None:
@@ -347,7 +605,8 @@ def main() -> None:
     phase_build()
     k = phase_kernel(smi.splitlines()[0])
     phase_fp32()
-    f = phase_frame()
+    f, G = phase_frame()
+    p = phase_painter(G, smi.splitlines()[0])
     main_path, b1 = k["timing"][3], k["timing"][1]  # the frame runs K1 at B=3
     print(json.dumps({"kernels": [{
         "name": "sort_integrate",
@@ -367,6 +626,7 @@ def main() -> None:
         "bound_share": main_path["bound_share"],
         "b1": b1,
         "ms_on_frame_inputs": f["k1_frame_ms"],
+        "painter_launches": {"per_request": p["launches"], "per_round": p["per_round"]},
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

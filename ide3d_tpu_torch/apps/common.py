@@ -62,9 +62,48 @@ def save_image_grid(images: np.ndarray, path: str, drange=(-1, 1), grid=None) ->
     PIL.Image.fromarray(canvas).save(path)
 
 
-def load_generator(network: str, device: torch.device | str = "cpu") -> Ide3dGenerator:
+def write_video(path: str, frames, fps: int = 24) -> str:
+    """Write RGB uint8 frames [H, W, 3] to `path`: through imageio when its
+    ffmpeg backend is installed, else OpenCV's mp4 writer, else an animated GIF
+    beside `path`. Returns the path written."""
+    import os
+
+    frames = [np.ascontiguousarray(f) for f in frames]
+    try:
+        # Without the ffmpeg backend imageio picks a PIL writer that fails on
+        # the .mp4 extension when it is collected, so it is not built at all.
+        import imageio_ffmpeg  # noqa: F401
+        import imageio
+
+        imageio.mimwrite(path, frames, fps=fps)
+        return path
+    except Exception:
+        pass
+    try:
+        import cv2
+
+        h, w = frames[0].shape[:2]
+        vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h))
+        if not vw.isOpened():
+            raise RuntimeError("OpenCV has no mp4 writer")
+        for f in frames:
+            vw.write(cv2.cvtColor(f, cv2.COLOR_RGB2BGR))
+        vw.release()
+        return path
+    except Exception:
+        pass
+    import PIL.Image
+
+    gif = os.path.splitext(path)[0] + ".gif"
+    imgs = [PIL.Image.fromarray(f) for f in frames]
+    imgs[0].save(gif, save_all=True, append_images=imgs[1:], duration=int(1000 / fps), loop=0)
+    return gif
+
+
+def load_generator(network: str, device: torch.device | str = "cuda") -> Ide3dGenerator:
     """Build a generator with random weights from a `random:<seed>[:tiny|small]`
-    spec. Loading a checkpoint is not ported yet."""
+    spec on `device` (the CPU only when asked). Loading a checkpoint is not
+    ported yet."""
     if not network.startswith("random"):
         raise NotImplementedError("the port loads no checkpoints yet; use random:<seed>[:tiny|small]")
     parts = network.split(":")

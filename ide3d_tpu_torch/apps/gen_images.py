@@ -6,8 +6,8 @@ Usage:
 Same CLI as `python -m ide3d_tpu.apps.gen_images`. For each seed: one z -> w+
 (with truncation), rendered at yaws {-0.5, 0, 0.5} as one batch of three;
 RGB saved as seed{NNNN}.png and the colorized 19-class mask as
-seed{NNNN}_seg.png, both 1x3 grids. Runs on the first CUDA device when there
-is one, else on the CPU (`--device` overrides).
+seed{NNNN}_seg.png, both 1x3 grids. Runs on the CUDA card; `--device cpu`
+runs it on the CPU.
 """
 
 from __future__ import annotations
@@ -58,7 +58,7 @@ def main(argv=None):
     ap.add_argument("--noise-mode", choices=["const", "random", "none"], default="const")
     ap.add_argument("--num-steps", type=int, default=96)
     ap.add_argument("--outdir", required=True)
-    ap.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu")
+    ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
     dev = torch.device(args.device)

@@ -4,7 +4,10 @@ Counterpart of ide3d_tpu/models/generator.py, with the same API shape:
 
     G.mapping(z, c, truncation_psi, truncation_cutoff) -> ws [B, num_ws, 512]
     G.synthesis(ws, c, render_params=..., noise_mode=..., return_seg=False,
-                return_raw=False, return_all=False) -> img | (img, seg) | (img, img_raw) | dict
+                return_raw=False, return_all=False, table=None)
+        -> img | (img, seg) | (img, img_raw) | dict
+    G.synthesis.plane_table(ws) -> the planes as the renderer's table, which
+        `table=` takes to render another pose of the same latent
 
 c is the 25-dim label (flattened 4x4 cam2world ++ 3x3 intrinsics); images come
 back NHWC in fp32, as in the JAX package. The w+ rows are laid out as there:
@@ -34,7 +37,7 @@ from torch import nn
 
 from ..render.renderer import RenderParams, TriplaneRenderer
 from .blocks import DTYPES, SegSynthesisBlock, SynthesisBlock
-from .layers import ToRGBLayer, init_module
+from .layers import ToRGBLayer, init_seeded
 from .mapping import MappingNetwork
 
 
@@ -112,6 +115,12 @@ class Ide3dSynthesisNetwork(nn.Module):
         return self.cfg.block_resolutions
 
     @property
+    def num_ws_geo(self) -> int:
+        """Geometry rows of ws: the vb convs and the shared plane head (8);
+        the rest are appearance rows (the Painter's appearance lock)."""
+        return len(self.voxel_block_resolutions) + 1
+
+    @property
     def num_ws(self) -> int:
         # 7 vb convs + 1 shared plane head + 1 raw-RGB head + 2 per superres block + 1 ToRGB
         return len(self.voxel_block_resolutions) + 2 + 2 * len(self.block_resolutions) + 1
@@ -144,6 +153,16 @@ class Ide3dSynthesisNetwork(nn.Module):
             x, img = getattr(self, f"b{res}")(x, img, ws3, noise_mode=noise_mode, generator=generator)
         return img
 
+    def plane_table(
+        self, ws: torch.Tensor, noise_mode: str = "const",
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """The planes of `ws` in the compute dtype, as the renderer's table
+        [B, H, W, 3*(Cf+Cs)]: everything of the frame that depends on the latent
+        alone, so a caller may keep it across poses (the Painter's plane cache)."""
+        img_v, seg_v = self.generate_planes(ws, noise_mode, generator)
+        return self.renderer.build_table(img_v.to(self.dtype), seg_v.to(self.dtype))
+
     def forward(
         self,
         ws: torch.Tensor,  # [B, num_ws, w_dim]
@@ -154,10 +173,12 @@ class Ide3dSynthesisNetwork(nn.Module):
         return_seg: bool = False,
         return_raw: bool = False,
         return_all: bool = False,
+        table: Optional[torch.Tensor] = None,
     ):
         """With a generator, noise_mode='random' draws the layer noise and the
         renderer jitters depths and samples the importance pass at random;
-        without one the frame is deterministic."""
+        without one the frame is deterministic. `table` is `plane_table(ws)`
+        made earlier; with it the planes are not generated again."""
         cfg = self.cfg
         rp = render_params or cfg.render
         if rp.img_size != cfg.render_size:
@@ -166,10 +187,11 @@ class Ide3dSynthesisNetwork(nn.Module):
             raise ValueError(f"ws has {ws.shape[1]} rows, generator expects {self.num_ws}")
         noise_gen = generator if noise_mode == "random" else None
 
-        img_v, seg_v = self.generate_planes(ws, noise_mode, noise_gen)
+        if table is None:
+            table = self.plane_table(ws, noise_mode, noise_gen)
         cam2world = c[:, :16].reshape(-1, 4, 4).float()
-        rout = self.renderer.render(img_v.to(self.dtype), seg_v.to(self.dtype), cam2world, rp,
-                                    generator=generator)
+        rout = self.renderer.render_fine(
+            self.renderer.render_coarse(None, None, cam2world, rp, generator, table=table), rp)
 
         feature = rout["feature"].permute(0, 3, 1, 2)  # [B, Cf, r, r] fp32
         raw_row = len(self.voxel_block_resolutions) + 1
@@ -235,12 +257,8 @@ class Ide3dGenerator(nn.Module):
     def init(self, seed: int = 0) -> "Ide3dGenerator":
         """Draw every weight from a CPU torch.Generator seeded with `seed`, so
         the same seed gives the same weights on every device. Returns self."""
-        gen = torch.Generator(device="cpu").manual_seed(seed)
-        dev = next(self.parameters()).device
-        self.to("cpu")
-        init_module(self, gen)
         self.mapping.w_avg.zero_()
-        return self.to(dev)
+        return init_seeded(self, seed)
 
     def forward(
         self,

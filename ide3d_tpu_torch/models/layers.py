@@ -1,9 +1,10 @@
 """Base layer family (StyleGAN2 conventions) as nn.Modules.
 
-Counterpart of ide3d_tpu/models/layers.py: FullyConnectedLayer, Conv2dLayer,
+Counterpart of ide3d_tpu/models/layers.py: FullyConnectedLayer, Conv2dLayer
+(the full contract: bias or none, activation, FIR up/down, clamp),
 SynthesisLayer ('default' upsample mode) and ToRGBLayer, with the settings the
 generator uses (3x3 modulated convs with noise, lrelu and conv clamp 256; 1x1
-ToRGB; linear 1x1 Conv2dLayer for the SPADE heads). Parameters are stored
+ToRGB). Parameters are stored
 unit-variance in fp32 and scaled by the equalized-lr gains at call time, then
 cast to the activations' dtype. Layouts: activations NCHW, conv weights OIHW,
 FC weights [out, in] (the JAX package: NHWC, HWIO, [in, out]; io/from_jax.py
@@ -19,7 +20,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..ops.bias_act import bias_act
+from ..ops.bias_act import activation_funcs, bias_act
 from ..ops.conv2d_resample import conv2d_resample
 from ..ops.modulated_conv import modulated_conv2d
 from ..ops.upfirdn2d import setup_filter
@@ -53,23 +54,38 @@ class FullyConnectedLayer(nn.Module):
 
 
 class Conv2dLayer(nn.Module):
-    """Linear conv with bias, no resampling, no clamp."""
+    """Equalized-lr conv with optional bias, FIR up/downsampling by `up`/`down`,
+    bias + activation (the activation's gain times `gain`) and an optional clamp
+    (`conv_clamp * gain`). Without a bias the module has no `bias` parameter,
+    as the JAX tree has no `bias` leaf."""
 
-    def __init__(self, in_channels: int, out_channels: int, kernel_size: int):
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int, bias: bool = True,
+                 activation: str = "linear", up: int = 1, down: int = 1,
+                 resample_filter=RESAMPLE_FILTER, conv_clamp: Optional[float] = None):
         super().__init__()
         self.in_channels, self.kernel_size = in_channels, kernel_size
+        self.activation = activation
+        self.up, self.down = up, down
+        self.conv_clamp = conv_clamp
+        self.register_buffer("resample_filter",
+                             setup_filter(resample_filter) if up > 1 or down > 1 else None,
+                             persistent=False)
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels, kernel_size, kernel_size))
-        self.bias = nn.Parameter(torch.zeros(out_channels))
+        self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
 
     def init_parameters(self, generator: torch.Generator) -> None:
         with torch.no_grad():
             self.weight.normal_(generator=generator)
-            self.bias.zero_()
+            if self.bias is not None:
+                self.bias.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, gain: float = 1.0) -> torch.Tensor:
         w = self.weight.to(x.dtype) * (1.0 / math.sqrt(self.in_channels * self.kernel_size**2))
-        x = conv2d_resample(x, w, padding=self.kernel_size // 2)
-        return bias_act(x, self.bias.to(x.dtype))
+        x = conv2d_resample(x, w, f=self.resample_filter, up=self.up, down=self.down,
+                            padding=self.kernel_size // 2, flip_weight=(self.up == 1))
+        return bias_act(x, None if self.bias is None else self.bias.to(x.dtype),
+                        act=self.activation, gain=activation_funcs[self.activation].def_gain * gain,
+                        clamp=None if self.conv_clamp is None else self.conv_clamp * gain)
 
 
 class SynthesisLayer(nn.Module):
@@ -153,3 +169,14 @@ def init_module(module: nn.Module, generator: torch.Generator) -> None:
         init = getattr(m, "init_parameters", None)
         if init is not None:
             init(generator)
+
+
+def init_seeded(module: nn.Module, seed: int) -> nn.Module:
+    """Draw every parameter of `module` from a CPU torch.Generator seeded with
+    `seed`, so the same seed gives the same weights on every device; the module
+    stays on its device. Returns the module."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    dev = next(module.parameters()).device
+    module.to("cpu")
+    init_module(module, gen)
+    return module.to(dev)

@@ -106,15 +106,17 @@ class TriplaneRenderer(nn.Module):
 
     def render_coarse(
         self,
-        img_v: torch.Tensor,  # [B, res, res, 3*32]
-        seg_v: torch.Tensor,  # [B, res, res, 3*19]
+        img_v: Optional[torch.Tensor],  # [B, res, res, 3*32]; None when table is given
+        seg_v: Optional[torch.Tensor],  # [B, res, res, 3*19]
         cam2world: torch.Tensor,  # [B, 4, 4]
         rp: RenderParams,
         generator: Optional[torch.Generator] = None,
+        table: Optional[torch.Tensor] = None,  # build_table(img_v, seg_v), made earlier
     ) -> dict:
         """Coarse pass (+ importance depths when hierarchical). Returns the state
         `render_fine` consumes. With no generator the pass is deterministic:
-        no depth jitter and sample_pdf on linspace CDF positions."""
+        no depth jitter and sample_pdf on linspace CDF positions. A caller that
+        keeps the planes across poses passes their `table`."""
         B = cam2world.shape[0]
         S = rp.num_steps
         W = H = rp.img_size
@@ -127,7 +129,8 @@ class TriplaneRenderer(nn.Module):
             points_cam, z_vals = perturb_z_vals(generator, points_cam, z_vals, rays_d_cam)
         pts, dirs, origins = transform_rays_to_world(points_cam, rays_d_cam, cam2world)
 
-        table = self.build_table(img_v, seg_v)
+        if table is None:
+            table = self.build_table(img_v, seg_v)
         coarse = self._sample_52(table, pts.reshape(B, Rr * S, 3)).reshape(B, Rr, S, self.out_channels)
         st = {"table": table, "coarse": coarse, "z_vals": z_vals, "rays_d_cam": rays_d_cam,
               "dirs": dirs, "origins": origins, "generator": generator}

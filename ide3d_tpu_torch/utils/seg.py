@@ -1,9 +1,12 @@
-"""19-class face-semantics colorization (counterpart of ide3d_tpu/utils/seg.py)."""
+"""19-class face-semantics toolkit: palette, label names, one-hot and
+colorization (counterpart of ide3d_tpu/utils/seg.py). Masks are integer
+[..., H, W]; class scores and one-hots are channels-last [..., H, W, 19]."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 # The published 19-class palette (dnnlib/seg_tools.py:13-32 of IDE-3D).
 COLOR_MAP = np.array(
@@ -15,6 +18,26 @@ COLOR_MAP = np.array(
     ],
     dtype=np.float32,
 )
+
+# Class names and ids (dnnlib/seg_tools.py:35-55 of IDE-3D).
+LABEL_LIST = {
+    "background": 0, "skin": 1, "nose": 2, "eye_g": 3, "l_eye": 4, "r_eye": 5,
+    "l_brow": 6, "r_brow": 7, "l_ear": 8, "r_ear": 9, "mouth": 10, "u_lip": 11,
+    "l_lip": 12, "hair": 13, "hat": 14, "ear_r": 15, "neck_l": 16, "neck": 17,
+    "cloth": 18,
+}
+
+NUM_CLASSES = 19
+
+
+def mask2onehot(mask: torch.Tensor, num_classes: int = NUM_CLASSES) -> torch.Tensor:
+    """Integer mask [..., H, W] -> float32 one-hot [..., H, W, num_classes]."""
+    return F.one_hot(mask.long(), num_classes).float()
+
+
+def onehot2mask(onehot: torch.Tensor) -> torch.Tensor:
+    """[..., H, W, C] class scores -> integer mask [..., H, W]."""
+    return onehot.argmax(dim=-1)
 
 
 def mask2color(seg: torch.Tensor) -> torch.Tensor:

@@ -99,7 +99,7 @@ def test_gen_images_cli_writes_pngs(tmp_path):
 
 @torch.inference_mode()
 def test_synth_views_batch_of_three_yaws():
-    G = load_generator("random:0:tiny")
+    G = load_generator("random:0:tiny", device="cpu")
     rp = RenderParams(img_size=8, num_steps=4)
     ws = G.mapping(torch.randn(1, 512, generator=torch.Generator().manual_seed(0)),
                    torch.as_tensor(jrender.CANONICAL_POSE_25)[None])
@@ -116,7 +116,7 @@ def test_synth_views_batch_of_three_yaws():
 def test_noise_modes_and_generator():
     """'random' draws layer noise (and depth jitter) from the generator: the same
     seed repeats, another seed differs; 'const' and 'none' need no generator."""
-    G = load_generator("random:0:tiny")
+    G = load_generator("random:0:tiny", device="cpu")
     for name, p in G.named_parameters():  # non-zero noise so that the modes differ
         if name.endswith("noise_strength"):
             p.fill_(0.5)
