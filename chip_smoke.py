@@ -33,11 +33,32 @@ Phases, one line each; any failure ends the run with a non-zero exit:
                G.synthesis (<= 1e-3), a stroke against the uncached edit
                (rec_ws <= 1e-3, uint8 within 1), the fp32 encoder on the card
                against the CPU (<= 3e-5 x scale)
+  7. train   - K1's backward against autograd through its plain version at
+               B=4, R=4096, S=96+96, C=51, fp32 and bf16 values, sorted and
+               unsorted halves, each option: max abs err / max|grad| <= 1e-4
+               (fp32), <= 1e-2 (bf16, the gradient rounded once to bf16);
+               then timed (CUDA graphs) alone and with the forward, at the
+               training render's layout (coarse half sorted, fine unsorted),
+               beside the byte bounds, and the plain backward (events). The
+               tiny fp32 preset's g-loss, d-loss and R1 (ADA at fixed draws)
+               and their G and D gradients, card against CPU (<= 1e-4 x
+               max). GeneratorConfig() + Discriminator(img_channels=25), bf16,
+               batch 4, a synthetic 512² batch: 6 steps of
+               make_gan_train_step at ada_p 0.2 (step 0 with R1) with each
+               step's K1 forward and backward launches counted (1 and 1),
+               finite stats, R1 on its cadence, G, D and G_ema moved; event
+               times, one more (warm) R1 step, peak memory. Then
+               apps.train_gan.main --preset full --batch 4 for 2 steps on an
+               8-image 512² dataset, and --resume of its snapshot-final, which
+               must restore every state dict, the step and ada_p.
 Then one JSON line with the kernels, and last {"ok": true, "device": {...}}.
-In that line `ms` and `plain_ms` are device times per call at B=3 from the
-CUDA graphs; `eager_ms` is the time between CUDA events around one eager call
-and `host_ms` the host's time in that call, medians at B=3; `b1` holds the
-same at B=1.
+In that line K1's `ms` and `plain_ms` are device times per call at B=3 from
+the CUDA graphs; `eager_ms` is the time between CUDA events around one eager
+call and `host_ms` the host's time in that call, medians at B=3; `b1` holds
+the same at B=1; `launches` counts phase 5's frames, `train_launches` phase
+7's steps. The backward's `ms` is its graph time at B=4, `plain_ms` the plain
+backward's event time, `launches` phase 7's steps, `max_abs_err` relative to
+max|grad|.
 """
 
 from __future__ import annotations
@@ -600,6 +621,323 @@ def phase_painter(G, smi: str) -> dict:
             "peak_gib": peak_gib, "max_abs_err": max(view_err, stroke_err["rec_ws"])}
 
 
+TRAIN_STEPS = 6  # full-width train steps of phase 7; step 0 applies R1
+TRAIN_ADA_P = 0.2
+
+
+def k1_backward_bytes(args, cot) -> int:
+    """Bytes K1's backward must move: the forward's inputs and the cotangents
+    read once, a gradient as large as the values written once."""
+    return (sum(t.numel() * t.element_size() for t in (*args, *cot) if t is not None)
+            + args[1].numel() * args[1].element_size() + args[3].numel() * args[3].element_size())
+
+
+def rel_err(got, ref) -> float:
+    """max |got - ref| / max |ref| over a list of tensor pairs."""
+    scale = max(float(r.float().abs().max()) for r in ref)
+    return max(float((g.float() - r.float()).abs().max()) for g, r in zip(got, ref)) / scale
+
+
+def _k1_cotangents(gen, args):
+    B, R, _, c1 = args[1].shape
+    return [torch.randn(B, R, n, generator=gen).cuda() for n in (c1 - 1, 1, 1)]
+
+
+def train_k1_backward(smi: str) -> dict:
+    """K1's backward at the training render's shape (B=4) against autograd
+    through the plain version, every option, then timed."""
+    from ide3d_tpu_torch.ops.ray_march import (sort_integrate, sort_integrate_backward,
+                                               sort_integrate_backward_plain)
+
+    gen = torch.Generator().manual_seed(7)
+    errs = {}
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+        for sorted_halves in (False, True):
+            args = k1_inputs(gen, dtype, B=4, sorted_halves=sorted_halves)
+            cot = _k1_cotangents(gen, args)
+            for opts in K1_OPTIONS:
+                kw = _k1_options(opts, args, gen)
+                got = sort_integrate_backward(*args, *cot, **kw)
+                ref = sort_integrate_backward_plain(*args, *cot, **kw)
+                torch.cuda.synchronize()
+                _check_finite(f"K1 backward {opts}", [g.float() for g in got])
+                err = rel_err(got, ref)
+                name = f"{str(dtype).split('.')[-1]} {'sorted' if sorted_halves else 'unsorted'} " \
+                       f"{','.join(opts) or 'softplus'}"
+                if err > tol or any(g.dtype != r.dtype for g, r in zip(got, ref)):
+                    raise RuntimeError(f"K1 backward vs plain ({name}): max abs err / max|grad| "
+                                       f"{err} > {tol}")
+                errs[name] = err
+            del args, cot
+
+    # Timed at the training render's inputs: bf16, coarse half sorted (jittered
+    # within its bins), fine half unsorted (random CDF positions). Two input sets.
+    sets = []
+    for _ in range(2):
+        a = k1_inputs(gen, torch.bfloat16, B=4, sorted_halves=True)
+        fine = k1_inputs(gen, torch.bfloat16, B=4)
+        args = (a[0], a[1], fine[2], fine[3], a[4])
+        sets.append((args, _k1_cotangents(gen, args)))
+    bwd = [lambda s=s: sort_integrate_backward(*s[0], *s[1]) for s in sets]
+    both = [lambda s=s: (sort_integrate(*s[0]), sort_integrate_backward(*s[0], *s[1])) for s in sets]
+    fwd = [lambda s=s: sort_integrate(*s[0]) for s in sets]
+    t_bwd = [graph_ms(bwd, 10), graph_ms(bwd, 10)]
+    t_both = [graph_ms(both, 10), graph_ms(both, 10)]
+    t_fwd = graph_ms(fwd, 10)
+    plain = [event_median_ms(lambda: sort_integrate_backward_plain(*s[0], *s[1]), runs=5) for s in sets]
+    bwd_bytes = k1_backward_bytes(*sets[0])
+    fwd_bytes = k1_bytes(sets[0][0])
+    out = {"max_abs_err": max(errs.values()), "errs": errs, "ms": min(t_bwd),
+           "plain_ms": min(plain), "bound_ms": bwd_bytes / HBM_BYTES_PER_MS, "bytes": bwd_bytes,
+           "fwd_bwd_ms": min(t_both), "fwd_bwd_bound_ms": (bwd_bytes + fwd_bytes) / HBM_BYTES_PER_MS,
+           "fwd_ms_b4": t_fwd, "fwd_bound_ms_b4": fwd_bytes / HBM_BYTES_PER_MS}
+    out["bound_share"] = out["bound_ms"] / out["ms"]
+    print(f"train: K1 backward bf16 B=4 R=4096 S=96+96 C=51 (coarse sorted, fine unsorted): "
+          f"{t_bwd[0]:.4f}/{t_bwd[1]:.4f} ms, {bwd_bytes} B, bound {out['bound_ms'] * 1e3:.1f} us "
+          f"({100 * out['bound_share']:.1f}% of it); forward + backward {t_both[0]:.4f}/{t_both[1]:.4f} "
+          f"ms, bound {out['fwd_bwd_bound_ms'] * 1e3:.1f} us; forward alone {t_fwd:.4f} ms "
+          f"(bound {out['fwd_bound_ms_b4'] * 1e3:.1f} us); plain backward (autograd, event ms) "
+          f"{[round(p, 4) for p in plain]} ({smi}); vs plain, max abs err / max|grad| "
+          f"{json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})} "
+          f"(limits fp32 1e-4, bf16 1e-2)", flush=True)
+    return out
+
+
+def _tiny_gan(device: str):
+    from ide3d_tpu_torch.apps.common import PRESETS
+    from ide3d_tpu_torch.models.discriminator import Discriminator, DiscriminatorConfig
+    from ide3d_tpu_torch.models.generator import Ide3dGenerator
+
+    G = Ide3dGenerator(PRESETS["tiny"]).init(0).to(device)
+    D = Discriminator(DiscriminatorConfig(img_resolution=32, img_channels=25, channel_base=512,
+                                          channel_max=32, dtype="float32")).init(1).to(device)
+    for name, p in G.named_parameters():  # non-zero layer noise: the const noise enters
+        if name.endswith("noise_strength"):
+            p.data.fill_(0.3)
+    return G, D
+
+
+def train_card_vs_cpu() -> dict:
+    """fp32 tiny preset, the deterministic render, fixed z: g-loss, d-loss and
+    R1 (through ADA at fixed draws) and their gradients, card against CPU."""
+    import functools
+
+    from ide3d_tpu_torch.render.camera import CANONICAL_POSE_25
+    from ide3d_tpu_torch.train import augment, gan
+
+    rng = np.random.RandomState(3)
+    B, R = 4, 32
+    z = torch.from_numpy(rng.randn(B, 512).astype(np.float32))
+    real_img = torch.from_numpy(rng.uniform(-1, 1, (B, R, R, 3)).astype(np.float32))
+    real_seg = torch.from_numpy(rng.randint(0, 19, (B, R, R)).astype(np.uint8))
+    c = torch.as_tensor(CANONICAL_POSE_25)[None].repeat(B, 1)
+    tcfg = gan.GanTrainConfig(aug=augment.AugmentConfig(compute_dtype="float32"))
+    gen = torch.Generator().manual_seed(5)
+    Gm = augment._geometry_matrix(gen, 0.5, tcfg.aug, B, R, R)
+    Cm = augment._color_matrix(gen, 0.5, tcfg.aug, B)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        G, D = _tiny_gan(dev)
+        batch = gan.expand_compact_batch({"img": real_img.to(dev), "seg": real_seg.to(dev)})
+        plain_in = functools.partial(gan.d_input, tcfg=tcfg, gen=None, ada_p=0.0)
+
+        def ada_in(triple, Gm=Gm.to(dev), Cm=Cm.to(dev)):
+            return torch.cat(augment.apply_augment(*triple, Gm, Cm, None, tcfg.aug), dim=-1)
+
+        def grads(loss, module):  # the used parameters' gradients, in a fixed order
+            gs = torch.autograd.grad(loss, list(module.parameters()), allow_unused=True)
+            return [g for g in gs if g is not None]
+
+        lg, _, fakes = gan.g_loss(G, D, z.to(dev), c.to(dev), tcfg, None, plain_in)
+        real = gan.d_triple_real(batch["img"], batch["seg"], G.cfg.render_size)
+        ld, _ = gan.d_loss(D, fakes, real, c.to(dev), plain_in)
+        r1 = gan.r1_penalty(D, real, c.to(dev), ada_in)
+        res[dev] = {"values": [lg.detach(), ld.detach(), r1.detach()], "g": grads(lg, G),
+                    "d": grads(ld, D), "r1": grads(r1, D)}
+    err = {"values": rel_err([v.cpu() for v in res["cuda"]["values"]], res["cpu"]["values"])}
+    for k in ("g", "d", "r1"):
+        err[k] = rel_err([g.cpu() for g in res["cuda"][k]], res["cpu"][k])
+    print(f"train: tiny fp32 G/D, deterministic render, card (K1 + its backward) vs CPU (plain): "
+          f"losses g/d/R1 {[round(float(v), 6) for v in res['cuda']['values']]}; max abs err / "
+          f"max|x| {json.dumps({k: float(f'{v:.3g}') for k, v in err.items()})} (limit 1e-4)", flush=True)
+    if max(err.values()) > 1e-4:
+        raise RuntimeError(f"train: card vs CPU {err}")
+    return err
+
+
+def synthetic_batch(B: int, R: int, seed: int) -> dict:
+    """A compact (uint8) batch of B random R² images and seg ids, with the
+    three yaws of gen_images as cameras, on the card."""
+    from ide3d_tpu_torch.apps import gen_images
+
+    rng = np.random.RandomState(seed)
+    cams = gen_images.yaw_cameras("cuda")
+    return {"img": torch.from_numpy(rng.randint(0, 256, (B, R, R, 3), np.uint8)).cuda(),
+            "seg": torch.from_numpy(rng.randint(0, 19, (B, R, R), np.uint8)).cuda(),
+            "c": cams[torch.arange(B) % cams.shape[0]].contiguous()}
+
+
+def train_full_width(smi: str) -> dict:
+    """TRAIN_STEPS of make_gan_train_step at the flagship width, batch 4."""
+    from ide3d_tpu_torch.models.discriminator import Discriminator, DiscriminatorConfig
+    from ide3d_tpu_torch.models.generator import GeneratorConfig, Ide3dGenerator
+    from ide3d_tpu_torch.ops import ray_march
+    from ide3d_tpu_torch.train import gan
+
+    B, cfg = 4, GeneratorConfig()
+    tcfg = gan.GanTrainConfig(r1_gamma=0.0002 * cfg.img_resolution**2 / B)
+    G = Ide3dGenerator(cfg).init(seed=0).cuda()
+    D = Discriminator(DiscriminatorConfig(img_channels=gan.d_input_channels(tcfg, cfg))).init(1).cuda()
+    state = gan.init_gan_state(G, D, tcfg)
+    step = gan.make_gan_train_step(tcfg)
+    batch = synthetic_batch(B, cfg.img_resolution, seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    before = {n: [p.detach().clone() for p in m.parameters()] for n, m in (("G", G), ("D", D))}
+    torch.cuda.synchronize()
+
+    # The main path, counted: each step's K1 launches, forward and backward.
+    torch.cuda.reset_peak_memory_stats()
+    times, launches, stats = [], [], []
+    for _ in range(TRAIN_STEPS):
+        ray_march.sort_integrate.launches = ray_march.sort_integrate_backward.launches = 0
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, s = step(state, batch, gen, TRAIN_ADA_P)
+        end.record()
+        end.synchronize()
+        launches.append((ray_march.sort_integrate.launches, ray_march.sort_integrate_backward.launches))
+        times.append(start.elapsed_time(end))
+        stats.append({k: float(v) for k, v in s.items()})
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    for i, s in enumerate(stats):
+        if not all(np.isfinite(v) for v in s.values()):
+            raise RuntimeError(f"train step {i}: non-finite stats {s}")
+        if (s["r1_penalty"] > 0) != (i % tcfg.r1_interval == 0):
+            raise RuntimeError(f"train step {i}: R1 {s['r1_penalty']} off its cadence")
+    if any(n != (1, 1) for n in launches):
+        raise RuntimeError(f"K1 (forward, backward) launches per train step {launches}, want (1, 1)")
+    with torch.no_grad():
+        moved = {n: sum(float((p - q).abs().sum()) for p, q in zip(m.parameters(), before[n]))
+                 for n, m in (("G", G), ("D", D))}
+        ema_gap = sum(float((p - q).abs().sum())
+                      for p, q in zip(state.G_ema.parameters(), G.parameters()))
+    if not all(v > 0 for v in moved.values()):
+        raise RuntimeError(f"train: parameters did not move {moved}")
+    if not ema_gap > 0:
+        raise RuntimeError("train: G_ema equals G")
+
+    # One more R1 step after the warm-up, timed alone.
+    state.step = tcfg.r1_interval
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    state, s = step(state, batch, gen, TRAIN_ADA_P)
+    end.record()
+    end.synchronize()
+    warm_r1 = start.elapsed_time(end)
+    if not float(s["r1_penalty"]) > 0:
+        raise RuntimeError("train: the warm R1 step applied no R1")
+    med = statistics.median(times[1:])
+    print(f"train: GeneratorConfig() bf16 96+96 + Discriminator(img_channels=25) bf16, batch 4, "
+          f"ada_p {TRAIN_ADA_P}, {TRAIN_STEPS} steps of make_gan_train_step ({smi}): step ms "
+          f"{[round(t, 3) for t in times]} (step 0 with R1 and the first calls; median of the "
+          f"others {med:.3f}); a warm R1 step {warm_r1:.3f} ms; peak {peak_gib:.3f} GiB; K1 "
+          f"(forward, backward) launches per step {launches}; losses per step "
+          f"{[{k: round(v, 4) for k, v in s.items()} for s in stats]}; |dparam| sums {moved}", flush=True)
+    return {"launches": launches, "step_ms": times, "median_ms": med, "r1_step_ms": times[0],
+            "warm_r1_step_ms": warm_r1, "peak_gib": peak_gib, "imgs_per_s": B / med * 1e3}
+
+
+def write_dataset(root: str, n: int, R: int) -> tuple:
+    """n random R² PNGs with seg masks and a dataset.json of yaw cameras."""
+    import os
+
+    import PIL.Image
+
+    from ide3d_tpu_torch.apps import gen_images
+
+    imgs, segs = os.path.join(root, "imgs"), os.path.join(root, "segs")
+    os.makedirs(imgs)
+    os.makedirs(segs)
+    rng = np.random.RandomState(1)
+    cams = gen_images.yaw_cameras("cpu").numpy()
+    labels = {}
+    for i in range(n):
+        name = f"img{i:08d}.png"
+        PIL.Image.fromarray(rng.randint(0, 255, (R, R, 3), np.uint8)).save(os.path.join(imgs, name))
+        PIL.Image.fromarray(rng.randint(0, 19, (R, R), np.uint8)).save(os.path.join(segs, name))
+        label = cams[i % len(cams)].copy()
+        label[[1, 2, 5, 6, 9, 10]] *= -1  # stored OpenCV-convention, flipped on load
+        labels[name] = label.tolist()
+    with open(os.path.join(imgs, "dataset.json"), "w") as f:
+        json.dump({"labels": list(labels.items())}, f)
+    return imgs, segs
+
+
+def _same_state(a: dict, b: dict, path: str = "") -> None:
+    """Every tensor of two (nested) state dicts equal; raises with the first difference."""
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            raise RuntimeError(f"resume: keys of {path} differ")
+        for k in a:
+            _same_state(a[k], b[k], f"{path}.{k}")
+    elif isinstance(a, (list, tuple)):
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same_state(x, y, f"{path}[{i}]")
+    elif isinstance(a, torch.Tensor):
+        if not torch.equal(a.cpu(), b.cpu()):
+            raise RuntimeError(f"resume: {path} differs")
+    elif a != b:
+        raise RuntimeError(f"resume: {path} {a} != {b}")
+
+
+def train_entry_point() -> dict:
+    """apps.train_gan.main for 2 steps on an 8-image 512² dataset, then a
+    resume of its final snapshot that restores every state dict."""
+    import os
+    import tempfile
+
+    from ide3d_tpu_torch.apps import train_gan
+    from ide3d_tpu_torch.io.checkpoint import load_checkpoint
+
+    with tempfile.TemporaryDirectory() as root:
+        imgs, segs = write_dataset(root, 8, 512)
+        common = ["--data", imgs, "--seg", segs, "--preset", "full", "--batch", "4",
+                  "--kimg", "0.008", "--fixed-ada-p", str(TRAIN_ADA_P), "--device", "cuda"]
+        t0 = time.perf_counter()
+        first = train_gan.main(common + ["--outdir", os.path.join(root, "run")])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        snap = os.path.join(root, "run", "snapshot-final")
+        files = sorted(os.listdir(os.path.join(root, "run")))
+        saved, meta = load_checkpoint(snap)
+        if first.step != 2 or meta["step"] != 2 or meta["ada_p"] != TRAIN_ADA_P:
+            raise RuntimeError(f"train_gan: step {first.step}, meta {meta.get('step')}, "
+                               f"ada_p {meta.get('ada_p')}")
+        resumed = train_gan.main(common + ["--outdir", os.path.join(root, "resumed"),
+                                           "--resume", snap])
+        for name in ("G", "D", "G_ema", "opt_g", "opt_d"):
+            obj = getattr(resumed, name)
+            _same_state(saved[name], obj.state_dict(), name)
+            _same_state(getattr(first, name).state_dict(), obj.state_dict(), name)
+        _same_state(saved["pl_mean"], resumed.pl_mean, "pl_mean")
+        if resumed.step != 2:
+            raise RuntimeError(f"train_gan --resume: step {resumed.step}, want 2")
+    print(f"train: apps.train_gan.main --preset full --batch 4 --kimg 0.008 on 8 images: 2 steps "
+          f"in {run_s:.1f} s (G and D init, grid and snapshot included), wrote {files}; --resume "
+          f"of snapshot-final restored G, D, G_ema, opt_g, opt_d, pl_mean, step 2, ada_p "
+          f"{meta['ada_p']}", flush=True)
+    return {"run_s": run_s}
+
+
+def phase_train(smi: str) -> dict:
+    k = train_k1_backward(smi)
+    e = train_card_vs_cpu()
+    t = train_full_width(smi)
+    a = train_entry_point()
+    return {"k1_backward": k, "card_vs_cpu": e, "full": t, "app": a}
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
@@ -607,7 +945,10 @@ def main() -> None:
     phase_fp32()
     f, G = phase_frame()
     p = phase_painter(G, smi.splitlines()[0])
+    del G
+    tr = phase_train(smi.splitlines()[0])
     main_path, b1 = k["timing"][3], k["timing"][1]  # the frame runs K1 at B=3
+    kb = tr["k1_backward"]
     print(json.dumps({"kernels": [{
         "name": "sort_integrate",
         "route": "cuda",
@@ -627,6 +968,28 @@ def main() -> None:
         "b1": b1,
         "ms_on_frame_inputs": f["k1_frame_ms"],
         "painter_launches": {"per_request": p["launches"], "per_round": p["per_round"]},
+        "train_launches": sum(n[0] for n in tr["full"]["launches"]),
+        "train_b4": {"ms": kb["fwd_ms_b4"], "bound_ms": kb["fwd_bound_ms_b4"]},
+    }, {
+        "name": "sort_integrate_backward",
+        "route": "cuda",
+        "source": "ide3d_tpu_torch/csrc/ray_march.cu",
+        "replaces": "ide3d_tpu/ops/pallas/ray_march.py:121",
+        "autodiff_of": "ide3d_tpu/render/integration.py:85",
+        "launches": sum(n[1] for n in tr["full"]["launches"]),
+        "max_abs_err": kb["max_abs_err"],
+        "max_abs_err_is": "relative to max|grad|",
+        "ms": kb["ms"],
+        "plain_ms": kb["plain_ms"],
+        "bound_ms": kb["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "bytes": kb["bytes"],
+        "bound_share": kb["bound_share"],
+        "fwd_bwd_ms": kb["fwd_bwd_ms"],
+        "fwd_bwd_bound_ms": kb["fwd_bwd_bound_ms"],
+        "train_step": {k: tr["full"][k] for k in ("median_ms", "r1_step_ms", "warm_r1_step_ms",
+                                                  "peak_gib", "imgs_per_s")},
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

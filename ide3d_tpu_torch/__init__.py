@@ -7,9 +7,14 @@ module layout and names so that each module's counterpart is easy to find:
            sampling, and ray_march (the hand-written CUDA kernel K1 + its plain
            PyTorch version)
   render/  camera, integration (compositing + sample_pdf), TriplaneRenderer
-  models/  layers, mapping, blocks, generator (Ide3dGenerator)
-  io/      from_jax: the JAX parameter tree -> this package's modules
-  apps/    gen_images (the free-view frame CLI)
+  models/  layers, mapping, blocks, generator (Ide3dGenerator), encoder,
+           discriminator
+  train/   gan (the GAN train step, lazy R1), augment (ADA)
+  parallel/ stats (StatsAccumulator)
+  data/    dataset (image + seg + camera label folders, infinite_loader)
+  io/      from_jax: the JAX parameter tree -> this package's modules;
+           checkpoint: torch-native train-state snapshots
+  apps/    gen_images, painter, web_ui, train_gan
   csrc/    CUDA C++ sources, compiled with nvcc at first use (see _build.py)
 
 Inside the conv stacks activations are NCHW and conv weights OIHW; the public

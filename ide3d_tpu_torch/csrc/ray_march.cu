@@ -605,6 +605,287 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   }
 }
 
+// ---------------------------------------------------------------- the backward
+//
+// The gradient of K1 with respect to both value slabs, given the cotangents
+// g_feat [n_rays, C], g_depth [n_rays], g_wsum [n_rays]. Nothing is saved
+// between the passes: the kernel recomputes the forward's stable order, x_k =
+// delta_k * density_k, alpha_k, T_k and w_k (the same arithmetic as the
+// forward), then per sorted sample k
+//   a_k = g_feat . f_k + g_depth z_k + g_wsum,
+//   L_k = a_k - [last_back] a_{S-1} - [white_back] sum(g_feat),
+//   dL/df_k = w'_k g_feat          (w' the weights after last_back),
+//   dL/dx_k = L_k T_k e^{-x_k} - sum_{j>k} L_j w_j   (a reverse block scan),
+//   dL/dsigma_k = dL/dx_k delta_k density'(sigma_k + noise_k),
+// and writes each input row [dL/df, dL/dsigma] in the values' dtype. The last
+// sample (delta 1e10 |ray_d|) has an empty suffix, set to 0 rather than
+// subtracted, and its e^{-x} underflows to 0 before it meets delta: no inf * 0.
+//
+// Bound: bytes. The kernel reads the values and depths and writes a gradient
+// as large as the values: at B=4, R=4096, S=96+96, C+1=52, bf16, 670 MB, 200 us
+// at 3.35 TB/s. Design, simple first: one 4-warp block per ray; the depths,
+// noise and cotangent row are staged in shared memory by plain loads; a warp
+// reads each value row once (coalesced over channels) for a_k and sigma; the
+// rank is the forward's rank_items; the gradient rows are written flat over
+// the ray's contiguous slab, so neighbouring threads write neighbouring values.
+
+template <typename T>
+struct BwdArgs {
+  const float* z_a;
+  const T* v_a;
+  int s_a;
+  const float* z_b;
+  const T* v_b;
+  int s_b;
+  const float* ray_norm;
+  const float* noise;  // [n_rays, S] or null
+  int n_rays, channels, last_back, white_back;
+  int zb_off, noise_off, stage_floats;  // the depth stage, as the forward's Plan lays it out
+  const float* g_feat;   // [n_rays, C]
+  const float* g_depth;  // [n_rays]
+  const float* g_wsum;   // [n_rays]
+  T* gv_a;
+  T* gv_b;
+};
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// Exclusive suffix sum over the warp's lanes (lane 31 gets 0); `total` the warp's sum.
+__device__ __forceinline__ float warp_exclusive_suffix(float v, float& total) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float n = __shfl_down_sync(kFull, v, o);
+    if (lane + o < 32) v += n;
+  }
+  total = __shfl_sync(kFull, v, 0);
+  const float e = __shfl_down_sync(kFull, v, 1);
+  return lane == 31 ? 0.f : e;
+}
+
+// Shared memory of the backward: the depth stage (z_a, z_b at zb_off, noise at
+// noise_off; the sorted depths overlay it once ranked), the per-warp sums, then
+// by input index: raw sigma -> density -> w'; density' -> dL/dsigma; g_feat.f;
+// then g_feat of the ray (C) and the input index of each sorted position (S bytes).
+int bwd_smem_bytes(int stage_floats, int S, int C) {
+  return 4 * (stage_floats + kRedFloats + 3 * S + C) + S;
+}
+
+template <typename T, bool kRelu>
+__global__ void __launch_bounds__(kThreads)
+    sort_integrate_backward_kernel(const __grid_constant__ BwdArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int s_a = a.s_a, s_b = a.s_b, S = s_a + s_b;
+  const int c1 = a.channels, C = c1 - 1;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const size_t ray = blockIdx.x;
+  float* zarea = reinterpret_cast<float*>(smem);
+  float* red = zarea + a.stage_floats;
+  float* wd = red + kRedFloats;  // raw sigma, then density, then w', by input index
+  float* dsig = wd + S;          // density', then dL/dsigma, by input index
+  float* dot = dsig + S;         // g_feat . f_i, by input index
+  float* gf = dot + S;           // g_feat of this ray
+  uint8_t* src = reinterpret_cast<uint8_t*>(gf + C);
+  const int ni = (S + kThreads - 1) / kThreads;  // sorted positions per thread, contiguous
+
+  // 0. Depths, noise and the feature cotangent into shared memory.
+  for (int i = t; i < s_a; i += kThreads) zarea[i] = a.z_a[ray * s_a + i];
+  for (int i = t; i < s_b; i += kThreads) zarea[a.zb_off + i] = a.z_b[ray * s_b + i];
+  if (a.noise)
+    for (int i = t; i < S; i += kThreads) zarea[a.noise_off + i] = a.noise[ray * S + i];
+  for (int c = t; c < C; c += kThreads) gf[c] = a.g_feat[ray * C + c];
+  __syncthreads();
+
+  // 1. A warp a value row: g_feat . f_i over the lanes, and the raw sigma.
+  for (int i = warp; i < S; i += kWarps) {
+    const T* row = i < s_a ? a.v_a + (ray * s_a + i) * c1 : a.v_b + (ray * s_b + i - s_a) * c1;
+    float acc = 0.f;
+    for (int c = lane; c < c1; c += 32) {
+      const float v = to_f32(row[c]);
+      if (c < C) acc = fmaf(gf[c], v, acc);
+      else wd[i] = v;
+    }
+    acc = warp_allsum(acc);
+    if (lane == 0) dot[i] = acc;
+  }
+  if (warp == 0) {  // sum(g_feat), the white_back term
+    float g = 0.f;
+    for (int c = lane; c < C; c += 32) g += gf[c];
+    g = warp_allsum(g);
+    if (lane == 0) red[3 * kWarps] = g;
+  }
+  __syncthreads();
+
+  // 2. Input sample i = k * kThreads + t: depth, density and its derivative, sortedness.
+  float zi[kItems];
+  bool ok_a = true, ok_b = true;
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    const int i = k * kThreads + t;
+    zi[k] = 0.f;
+    if (i < S) {
+      const bool in_a = i < s_a;
+      const int zo = in_a ? i : a.zb_off + i - s_a;
+      zi[k] = zarea[zo];
+      if (in_a && i + 1 < s_a) ok_a &= zi[k] <= zarea[zo + 1];
+      if (!in_a && i + 1 < S) ok_b &= zi[k] <= zarea[zo + 1];
+      float sig = wd[i];
+      if (a.noise) sig += zarea[a.noise_off + i];
+      wd[i] = clamp_density<kRelu>(sig);
+      dsig[i] = kRelu ? (sig > 0.f ? 1.f : 0.f) : 1.f / (1.f + expf(-sig));
+    }
+  }
+  const bool sorted_a = __syncthreads_and(ok_a);
+  const bool sorted_b = __syncthreads_and(ok_b);
+
+  // 3. The forward's stable rank; the sorted depths overlay the stage's depths.
+  int rank[kItems];
+  rank_items(zarea, s_a, sorted_a, zarea + a.zb_off, s_b, sorted_b, zi, rank);
+  __syncthreads();
+  float* zs = zarea;
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    const int i = k * kThreads + t;
+    if (i < S) {
+      zs[rank[k]] = zi[k];
+      src[rank[k]] = static_cast<uint8_t>(i);
+    }
+  }
+  __syncthreads();
+
+  // 4. The forward again: delta, x, alpha, T (block scan of -x), w; sum of w.
+  const float norm = a.ray_norm[ray];
+  float w[kItems], tx[kItems], delta[kItems], ex[kItems], zk[kItems];
+  float run = 0.f;
+#pragma unroll
+  for (int m = 0; m < kItems; ++m) {
+    const int k = t * ni + m;
+    zk[m] = delta[m] = 0.f;
+    ex[m] = 1.f;
+    w[m] = run;  // exclusive sum within the thread, for now
+    tx[m] = 0.f;  // alpha, for now
+    if (m < ni && k < S) {
+      zk[m] = zs[k];
+      delta[m] = (k == S - 1 ? kLastDelta : zs[k + 1] - zk[m]) * norm;
+      const float x = delta[m] * wd[src[k]];
+      ex[m] = expf(-x);
+      tx[m] = 1.f - ex[m];
+      run -= x;
+    }
+  }
+  const float in_warp = warp_exclusive_scan(run);
+  if (lane == 31) red[warp] = in_warp + run;
+  __syncthreads();
+  float prefix = in_warp;
+  for (int v = 0; v < warp; ++v) prefix += red[v];
+  float ws = 0.f;
+#pragma unroll
+  for (int m = 0; m < kItems; ++m) {
+    const float trans = expf(prefix + w[m]);
+    w[m] = tx[m] * trans;  // alpha * T, as the forward computes it
+    tx[m] = trans;
+    ws += w[m];
+  }
+  ws = warp_allsum(ws);
+  if (lane == 0) red[kWarps + warp] = ws;
+  __syncthreads();
+  ws = 0.f;
+  for (int v = 0; v < kWarps; ++v) ws += red[kWarps + v];
+  const float rest = 1.f - ws;
+
+  // 5. L_k, and the exclusive suffix sum of L_j w_j in depth order.
+  const float gd = a.g_depth[ray], gw = a.g_wsum[ray];
+  const float a_last = dot[src[S - 1]] + gd * zs[S - 1] + gw;
+  const float shift = (a.last_back ? a_last : 0.f) + (a.white_back ? red[3 * kWarps] : 0.f);
+  float L[kItems], suf[kItems];
+  float acc = 0.f;
+#pragma unroll
+  for (int m = kItems - 1; m >= 0; --m) {
+    const int k = t * ni + m;
+    L[m] = 0.f;
+    if (m < ni && k < S) L[m] = dot[src[k]] + gd * zk[m] + gw - shift;
+    suf[m] = acc;
+    acc += L[m] * w[m];
+  }
+  float warp_total;
+  float after = warp_exclusive_suffix(acc, warp_total);
+  if (lane == 0) red[2 * kWarps + warp] = warp_total;
+  __syncthreads();
+  for (int v = warp + 1; v < kWarps; ++v) after += red[2 * kWarps + v];
+
+  // 6. dL/dsigma and w' by input index.
+#pragma unroll
+  for (int m = 0; m < kItems; ++m) {
+    const int k = t * ni + m;
+    if (m < ni && k < S) {
+      const int i = src[k];
+      const float suffix = k == S - 1 ? 0.f : after + suf[m];
+      const float dx = L[m] * tx[m] * ex[m] - suffix;
+      dsig[i] = dx * (delta[m] * dsig[i]);
+      wd[i] = (a.last_back && k == S - 1) ? w[m] + rest : w[m];
+    }
+  }
+  __syncthreads();
+
+  // 7. The gradient rows [w'_i g_feat, dL/dsigma_i], flat over each half's slab.
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int first = h ? s_a : 0;
+    const int n = (h ? s_b : s_a) * c1;
+    T* out = h ? a.gv_b + ray * s_b * c1 : a.gv_a + ray * s_a * c1;
+    for (int e = t; e < n; e += kThreads) {
+      const int row = e / c1, col = e - row * c1;
+      const int i = first + row;
+      out[e] = from_f32<T>(col < C ? wd[i] * gf[col] : dsig[i]);
+    }
+  }
+}
+
+template <typename T, bool kRelu>
+int launch_backward(const BwdArgs<T>& a, cudaStream_t st) {
+  const int S = a.s_a + a.s_b, C = a.channels - 1;
+  sort_integrate_backward_kernel<T, kRelu>
+      <<<a.n_rays, kThreads, bwd_smem_bytes(a.stage_floats, S, C), st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch_backward(const void* z_a, const void* v_a, int s_a, const void* z_b,
+                      const void* v_b, int s_b, const void* ray_norm, const void* noise,
+                      int n_rays, int channels, int relu, int last_back, int white_back,
+                      const void* g_feat, const void* g_depth, const void* g_wsum, void* gv_a,
+                      void* gv_b, cudaStream_t st) {
+  BwdArgs<T> a;
+  a.z_a = static_cast<const float*>(z_a);
+  a.v_a = static_cast<const T*>(v_a);
+  a.s_a = s_a;
+  a.z_b = static_cast<const float*>(z_b);
+  a.v_b = static_cast<const T*>(v_b);
+  a.s_b = s_b;
+  a.ray_norm = static_cast<const float*>(ray_norm);
+  a.noise = static_cast<const float*>(noise);
+  a.n_rays = n_rays;
+  a.channels = channels;
+  a.last_back = last_back;
+  a.white_back = white_back;
+  a.zb_off = round_up(s_a, 4);  // z_b 16-byte aligned: count_half reads it as float4
+  a.noise_off = a.zb_off + round_up(s_b, 4);
+  a.stage_floats = a.noise_off + (noise ? round_up(s_a + s_b, 4) : 0);
+  a.g_feat = static_cast<const float*>(g_feat);
+  a.g_depth = static_cast<const float*>(g_depth);
+  a.g_wsum = static_cast<const float*>(g_wsum);
+  a.gv_a = static_cast<T*>(gv_a);
+  a.gv_b = static_cast<T*>(gv_b);
+  return relu ? launch_backward<T, true>(a, st) : launch_backward<T, false>(a, st);
+}
+
 template <typename T, bool kRelu>
 int launch(int device, const Args<T>& a, cudaStream_t st) {
   // Per instantiation: the shared-memory attribute and occupancy of the last plan.
@@ -672,4 +953,24 @@ extern "C" int ide3d_sort_integrate(
                                    st);
   return dispatch<float>(device, z_a, v_a, s_a, z_b, v_b, s_b, ray_norm, noise, n_rays, channels,
                          relu, last_back, white_back, feat, depth, wsum, st);
+}
+
+// K1's backward: writes grad_vals_a [n_rays, s_a, channels] and grad_vals_b in
+// the values' dtype from fp32 cotangents g_feat [n_rays, channels - 1], g_depth
+// and g_wsum [n_rays]. Same conventions as the forward.
+extern "C" int ide3d_sort_integrate_backward(
+    int device, const void* z_a, const void* v_a, int s_a, const void* z_b, const void* v_b,
+    int s_b, const void* ray_norm, const void* noise, int n_rays, int channels, int vals_bf16,
+    int relu, int last_back, int white_back, const void* g_feat, const void* g_depth,
+    const void* g_wsum, void* gv_a, void* gv_b, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (vals_bf16)
+    return dispatch_backward<__nv_bfloat16>(z_a, v_a, s_a, z_b, v_b, s_b, ray_norm, noise,
+                                            n_rays, channels, relu, last_back, white_back,
+                                            g_feat, g_depth, g_wsum, gv_a, gv_b, st);
+  return dispatch_backward<float>(z_a, v_a, s_a, z_b, v_b, s_b, ray_norm, noise, n_rays,
+                                  channels, relu, last_back, white_back, g_feat, g_depth, g_wsum,
+                                  gv_a, gv_b, st);
 }

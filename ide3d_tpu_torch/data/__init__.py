@@ -1,0 +1,1 @@
+"""Dataset and loader of the PyTorch port (its own copy; it imports nothing of ide3d_tpu)."""

@@ -2,7 +2,9 @@
 
 Counterpart of ide3d_tpu/models/mapping.py: an 8-layer lr=0.01 MLP on the
 2nd-moment-normalized latent with a label embedding, w broadcast to num_ws
-rows, and truncation toward the tracked w_avg with an optional cutoff.
+rows, and truncation toward the tracked w_avg with an optional cutoff. With
+num_ws=None (the discriminator's label mapping, z_dim=0) nothing is broadcast
+and there is no w_avg, as that tree has none.
 """
 
 from __future__ import annotations
@@ -20,19 +22,20 @@ def normalize_2nd_moment(x: torch.Tensor, dim: int = -1, eps: float = 1e-8) -> t
 
 
 class MappingNetwork(nn.Module):
-    num_layers = 8
-
-    def __init__(self, z_dim: int = 512, c_dim: int = 25, w_dim: int = 512, num_ws: int = 18):
+    def __init__(self, z_dim: int = 512, c_dim: int = 25, w_dim: int = 512,
+                 num_ws: Optional[int] = 18, num_layers: int = 8):
         super().__init__()
         self.z_dim, self.c_dim, self.w_dim = z_dim, c_dim, w_dim
         self.num_ws = num_ws
+        self.num_layers = num_layers
         embed = w_dim if c_dim > 0 else 0
         features = [z_dim + embed] + [w_dim] * self.num_layers
         for i in range(self.num_layers):
             setattr(self, f"fc{i}", FullyConnectedLayer(
                 features[i], features[i + 1], activation="lrelu", lr_multiplier=0.01))
         self.embed = FullyConnectedLayer(c_dim, embed) if c_dim > 0 else None
-        self.register_buffer("w_avg", torch.zeros(w_dim))
+        if num_ws is not None:
+            self.register_buffer("w_avg", torch.zeros(w_dim))
 
     def forward(
         self,
@@ -42,7 +45,7 @@ class MappingNetwork(nn.Module):
         truncation_cutoff: Optional[int] = None,
     ) -> torch.Tensor:
         """-> ws [B, num_ws, w_dim], truncated toward w_avg (rows < cutoff only,
-        when a cutoff is given)."""
+        when a cutoff is given); w [B, w_dim] when num_ws is None."""
         x = None
         if self.z_dim > 0:
             if z is None or z.shape[-1] != self.z_dim:
@@ -57,6 +60,8 @@ class MappingNetwork(nn.Module):
         for i in range(self.num_layers):
             x = getattr(self, f"fc{i}")(x)
 
+        if self.num_ws is None:
+            return x
         x = x[:, None, :].expand(-1, self.num_ws, -1)
         if truncation_psi != 1.0:
             if truncation_cutoff is None:

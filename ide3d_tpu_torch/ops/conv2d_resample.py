@@ -6,7 +6,9 @@ Counterpart of ide3d_tpu/ops/conv2d_resample.py, with its algebra:
                        then the conv (and an FIR downsample if down > 1),
   * down > 1        -> FIR low-pass through `upfirdn2d`, then a strided conv.
 Padding is taken w.r.t. the upsampled image. `flip_weight=True` is correlation
-(what F.conv2d computes); `flip_weight=False` flips the kernel spatially.
+(what F.conv2d computes); `flip_weight=False` flips the kernel spatially. The
+convolutions go through `conv2d_gradfix`, which differentiates twice (R1) at
+the cost of once.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from . import conv2d_gradfix
 from .upfirdn2d import FilterArg, _parse_padding, get_filter_size, upfirdn2d
 
 
@@ -32,9 +35,9 @@ def _conv2d(
         w = w.flip([2, 3])
     px0, px1, py0, py1 = padding
     if px0 == px1 and py0 == py1:
-        return F.conv2d(x, w.to(x.dtype), stride=stride, padding=(py0, px0), groups=groups)
+        return conv2d_gradfix.conv2d(x, w.to(x.dtype), stride=stride, padding=(py0, px0), groups=groups)
     x = F.pad(x, [px0, px1, py0, py1])
-    return F.conv2d(x, w.to(x.dtype), stride=stride, groups=groups)
+    return conv2d_gradfix.conv2d(x, w.to(x.dtype), stride=stride, groups=groups)
 
 
 def conv2d_resample(

@@ -7,9 +7,11 @@ softplus or relu clamp, last_back and white_back. `sort_integrate` is the
 entry point:
 
   * on CUDA tensors it launches the hand-written kernel in csrc/ray_march.cu
-    (built by nvcc at first use) or raises; it never falls back,
+    (built by nvcc at first use) or raises; it never falls back. It is
+    differentiable in the values: `_SortIntegrateFn`'s backward launches the
+    hand-written backward kernel (`sort_integrate_backward`),
   * on CPU tensors it runs `sort_integrate_plain`, the plain PyTorch version
-    with the kernel's semantics.
+    with the kernel's semantics, and autograd differentiates that.
 
 The samples come as two halves (the coarse and the fine pass), so the merged
 tensor is never written; the halves' depths need not be sorted or disjoint.
@@ -123,13 +125,150 @@ def _check(z_a, vals_a, z_b, vals_b, ray_norm, noise=None, clamp_mode="softplus"
         raise ValueError(f"need 2 <= C+1 <= {MAX_SAMPLES} channels, got {c1}")
 
 
+def sort_integrate_backward_plain(
+    z_a: torch.Tensor,
+    vals_a: torch.Tensor,
+    z_b: torch.Tensor,
+    vals_b: torch.Tensor,
+    ray_norm: torch.Tensor,
+    g_feat: torch.Tensor,  # [B, R, C] cotangents of the three outputs
+    g_depth: torch.Tensor,  # [B, R, 1]
+    g_wsum: torch.Tensor,  # [B, R, 1]
+    noise: Optional[torch.Tensor] = None,
+    clamp_mode: str = "softplus",
+    last_back: bool = False,
+    white_back: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain K1 backward: autograd through `sort_integrate_plain`. Returns the
+    gradients (vals_a, vals_b) in the values' dtype."""
+    with torch.enable_grad():
+        va = vals_a.detach().requires_grad_()
+        vb = vals_b.detach().requires_grad_()
+        outs = sort_integrate_plain(z_a, va, z_b, vb, ray_norm, noise=noise,
+                                    clamp_mode=clamp_mode, last_back=last_back,
+                                    white_back=white_back)
+        ga, gb = torch.autograd.grad(outs, (va, vb), (g_feat, g_depth, g_wsum))
+    return ga, gb
+
+
 @functools.cache
-def _kernel_fn():
-    fn = _build.load("ray_march").ide3d_sort_integrate
+def _kernel_fns():
+    lib = _build.load("ray_march")
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [i, p, p, i, p, p, i, p, p, i, i, i, i, i, i, p, p, p, p]
-    fn.restype = ctypes.c_int
-    return fn
+    fwd, bwd = lib.ide3d_sort_integrate, lib.ide3d_sort_integrate_backward
+    fwd.argtypes = [i, p, p, i, p, p, i, p, p, i, i, i, i, i, i, p, p, p, p]
+    bwd.argtypes = [i, p, p, i, p, p, i, p, p, i, i, i, i, i, i, p, p, p, p, p, p]
+    fwd.restype = bwd.restype = ctypes.c_int
+    return fwd, bwd
+
+
+def _device_index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def _launch_forward(z_a, vals_a, z_b, vals_b, ray_norm, noise, clamp_mode, last_back, white_back):
+    _check(z_a, vals_a, z_b, vals_b, ray_norm, noise, clamp_mode)
+    B, R, s_a, _ = z_a.shape
+    s_b = z_b.shape[2]
+    c1 = vals_a.shape[-1]
+    dev = z_a.device
+    feat = torch.empty(B, R, c1 - 1, device=dev, dtype=torch.float32)
+    depth = torch.empty(B, R, 1, device=dev, dtype=torch.float32)
+    wsum = torch.empty(B, R, 1, device=dev, dtype=torch.float32)
+    rc = _kernel_fns()[0](
+        _device_index(dev),
+        z_a.data_ptr(), vals_a.data_ptr(), s_a, z_b.data_ptr(), vals_b.data_ptr(), s_b,
+        ray_norm.data_ptr(), noise.data_ptr() if noise is not None else None, B * R, c1,
+        int(vals_a.dtype == torch.bfloat16), int(clamp_mode == "relu"), int(last_back),
+        int(white_back), feat.data_ptr(), depth.data_ptr(), wsum.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"ray_march kernel launch failed: CUDA error {rc}")
+    sort_integrate.launches += 1
+    return feat, depth, wsum
+
+
+def sort_integrate_backward(
+    z_a: torch.Tensor,
+    vals_a: torch.Tensor,
+    z_b: torch.Tensor,
+    vals_b: torch.Tensor,
+    ray_norm: torch.Tensor,
+    g_feat: torch.Tensor,
+    g_depth: torch.Tensor,
+    g_wsum: torch.Tensor,
+    noise: Optional[torch.Tensor] = None,
+    clamp_mode: str = "softplus",
+    last_back: bool = False,
+    white_back: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1's backward on the tensors' device: the CUDA kernel on CUDA, autograd
+    through the plain version on the CPU. The cotangents are fp32 [B,R,C],
+    [B,R,1], [B,R,1]; returns the gradients of (vals_a, vals_b) in their dtype."""
+    if z_a.device.type == "cpu":
+        return sort_integrate_backward_plain(z_a, vals_a, z_b, vals_b, ray_norm, g_feat, g_depth,
+                                             g_wsum, noise=noise, clamp_mode=clamp_mode,
+                                             last_back=last_back, white_back=white_back)
+    if z_a.device.type != "cuda":
+        raise NotImplementedError(f"sort_integrate_backward has no kernel for {z_a.device}")
+    _check(z_a, vals_a, z_b, vals_b, ray_norm, noise, clamp_mode)
+    B, R, s_a, _ = z_a.shape
+    s_b = z_b.shape[2]
+    c1 = vals_a.shape[-1]
+    dev = z_a.device
+    for name, g, shape in (("g_feat", g_feat, (B, R, c1 - 1)), ("g_depth", g_depth, (B, R, 1)),
+                           ("g_wsum", g_wsum, (B, R, 1))):
+        if g.device != dev or g.dtype != torch.float32 or tuple(g.shape) != shape \
+                or not g.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 {shape} tensor on {dev}, got "
+                             f"{g.dtype} {tuple(g.shape)} on {g.device}")
+    grad_a, grad_b = torch.empty_like(vals_a), torch.empty_like(vals_b)
+    rc = _kernel_fns()[1](
+        _device_index(dev),
+        z_a.data_ptr(), vals_a.data_ptr(), s_a, z_b.data_ptr(), vals_b.data_ptr(), s_b,
+        ray_norm.data_ptr(), noise.data_ptr() if noise is not None else None, B * R, c1,
+        int(vals_a.dtype == torch.bfloat16), int(clamp_mode == "relu"), int(last_back),
+        int(white_back), g_feat.data_ptr(), g_depth.data_ptr(), g_wsum.data_ptr(),
+        grad_a.data_ptr(), grad_b.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"ray_march backward kernel launch failed: CUDA error {rc}")
+    sort_integrate_backward.launches += 1
+    return grad_a, grad_b
+
+
+sort_integrate_backward.launches = 0  # kernel launches since the last reset
+
+
+class _SortIntegrateFn(torch.autograd.Function):
+    """K1 on the card with its hand-written backward: gradients for the two
+    value slabs only. The depths, |ray_d| and the noise are constants of the
+    composite (the JAX render stop-gradients its importance depths)."""
+
+    @staticmethod
+    def forward(ctx, z_a, vals_a, z_b, vals_b, ray_norm, noise, clamp_mode, last_back, white_back):
+        needs = ctx.needs_input_grad
+        for name, need in (("z_a", needs[0]), ("z_b", needs[2]), ("ray_norm", needs[4]),
+                           ("noise", needs[5])):
+            if need:
+                raise ValueError(f"sort_integrate has no gradient for {name}; detach it")
+        out = _launch_forward(z_a, vals_a, z_b, vals_b, ray_norm, noise, clamp_mode, last_back,
+                              white_back)
+        ctx.save_for_backward(z_a, vals_a, z_b, vals_b, ray_norm, noise)
+        ctx.opts = dict(clamp_mode=clamp_mode, last_back=last_back, white_back=white_back)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_feat, g_depth, g_wsum):
+        z_a, vals_a, z_b, vals_b, ray_norm, noise = ctx.saved_tensors
+        B, R, _, c1 = vals_a.shape
+        cot = [torch.zeros(B, R, n, device=vals_a.device) if g is None else g.float().contiguous()
+               for g, n in ((g_feat, c1 - 1), (g_depth, 1), (g_wsum, 1))]
+        grad_a, grad_b = sort_integrate_backward(z_a, vals_a, z_b, vals_b, ray_norm, *cot,
+                                                 noise=noise, **ctx.opts)
+        return None, grad_a, None, grad_b, None, None, None, None, None
 
 
 def sort_integrate(
@@ -143,34 +282,17 @@ def sort_integrate(
     last_back: bool = False,
     white_back: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K1 on the tensors' device: the CUDA kernel on CUDA, the plain version on
-    the CPU. Returns (features [B,R,C], depth [B,R,1], weights_sum [B,R,1]) in fp32."""
+    """K1 on the tensors' device: the CUDA kernel on CUDA (differentiable in
+    the values through `sort_integrate_backward`), the plain version on the
+    CPU. Returns (features [B,R,C], depth [B,R,1], weights_sum [B,R,1]) in fp32."""
     if z_a.device.type == "cpu":
         return sort_integrate_plain(z_a, vals_a, z_b, vals_b, ray_norm, noise=noise,
                                     clamp_mode=clamp_mode, last_back=last_back,
                                     white_back=white_back)
     if z_a.device.type != "cuda":
         raise NotImplementedError(f"sort_integrate has no kernel for {z_a.device}")
-    _check(z_a, vals_a, z_b, vals_b, ray_norm, noise, clamp_mode)
-    B, R, s_a, _ = z_a.shape
-    s_b = z_b.shape[2]
-    c1 = vals_a.shape[-1]
-    dev = z_a.device
-    feat = torch.empty(B, R, c1 - 1, device=dev, dtype=torch.float32)
-    depth = torch.empty(B, R, 1, device=dev, dtype=torch.float32)
-    wsum = torch.empty(B, R, 1, device=dev, dtype=torch.float32)
-    rc = _kernel_fn()(
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        z_a.data_ptr(), vals_a.data_ptr(), s_a, z_b.data_ptr(), vals_b.data_ptr(), s_b,
-        ray_norm.data_ptr(), noise.data_ptr() if noise is not None else None, B * R, c1,
-        int(vals_a.dtype == torch.bfloat16), int(clamp_mode == "relu"), int(last_back),
-        int(white_back), feat.data_ptr(), depth.data_ptr(), wsum.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"ray_march kernel launch failed: CUDA error {rc}")
-    sort_integrate.launches += 1
-    return feat, depth, wsum
+    return _SortIntegrateFn.apply(z_a, vals_a, z_b, vals_b, ray_norm, noise, clamp_mode,
+                                  last_back, white_back)
 
 
 sort_integrate.launches = 0  # kernel launches since the last reset; the plain path never counts

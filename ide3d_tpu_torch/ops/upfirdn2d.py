@@ -7,7 +7,8 @@ Counterpart of ide3d_tpu/ops/upfirdn2d.py with the same semantics:
      filter is flipped before the (correlating) depthwise conv2d,
   4. keeping every `down`-th pixel.
 A separable filter ([taps]) runs as two 1-D passes. The JAX package keeps the
-data channels-last; here it is NCHW, cuDNN's layout.
+data channels-last; here it is NCHW, cuDNN's layout. The depthwise filter runs
+through `conv2d_gradfix`, whose double backward (R1) needs no per-channel loop.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from . import conv2d_gradfix
 
 FilterArg = Union[None, Sequence[float], np.ndarray, torch.Tensor]
 
@@ -117,10 +120,10 @@ def upfirdn2d(
         f = f.flip(list(range(f.ndim)))
     f = f.to(x.dtype)
     if f.ndim == 2:
-        x = F.conv2d(x, f[None, None].repeat(C, 1, 1, 1), groups=C)
+        x = conv2d_gradfix.conv2d(x, f[None, None].repeat(C, 1, 1, 1), groups=C)
     else:
-        x = F.conv2d(x, f[None, None, None, :].repeat(C, 1, 1, 1), groups=C)
-        x = F.conv2d(x, f[None, None, :, None].repeat(C, 1, 1, 1), groups=C)
+        x = conv2d_gradfix.conv2d(x, f[None, None, None, :].repeat(C, 1, 1, 1), groups=C)
+        x = conv2d_gradfix.conv2d(x, f[None, None, :, None].repeat(C, 1, 1, 1), groups=C)
 
     if downx > 1 or downy > 1:
         x = x[:, :, ::downy, ::downx]

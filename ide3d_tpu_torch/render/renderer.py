@@ -9,8 +9,9 @@ Counterpart of ide3d_tpu/render/renderer.py, with the same contract:
   * ray segment [2.25, 3.3], fov 18 deg, render size 64, 96 + 96 samples.
 
 The merged composite is K1 (ops/ray_march.sort_integrate) for every option
-(clamp mode, density noise, last_back, white_back): the CUDA kernel on the
-card, its plain version on the CPU. Planes keep the JAX layout
+(clamp mode, density noise, last_back, white_back): the CUDA kernel and its
+hand-written backward on the card, its plain version on the CPU. The
+importance depths are detached, as the JAX render stop-gradients them. Planes keep the JAX layout
 [B, H, W, 3*C]; randomness enters through an explicit torch.Generator.
 """
 
@@ -142,7 +143,9 @@ class TriplaneRenderer(nn.Module):
             z_flat = z_vals.reshape(B * Rr, S)
             z_mid = 0.5 * (z_flat[:, :-1] + z_flat[:, 1:])
             fine_z = sample_pdf(z_mid, w_flat, S, generator=generator, det=generator is None)
-            st["fine_z"] = fine_z.reshape(B, Rr, S, 1)
+            # Constants of the fine pass, as the JAX render stop-gradients them:
+            # no gradient flows through the importance depths to the coarse weights.
+            st["fine_z"] = fine_z.reshape(B, Rr, S, 1).detach()
         return st
 
     def render_fine(self, st: dict, rp: RenderParams) -> dict:

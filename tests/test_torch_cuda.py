@@ -16,6 +16,14 @@ import torch
 from ide3d_tpu_torch.ops import ray_march
 
 
+@pytest.fixture(autouse=True)
+def _autograd_on():
+    """Some test modules turn autograd off when they are imported
+    (torch.set_grad_enabled(False)), and a test worker imports every module."""
+    with torch.enable_grad():
+        yield
+
+
 def t(a):
     return torch.from_numpy(np.array(a))
 
@@ -68,3 +76,97 @@ def test_k1_kernel_matches_plain_on_card(shape, opts):
     for g, r in zip(got, ref):
         assert torch.isfinite(g).all()
         np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,opts", [
+    # (Sa, Sb, C+1, vals dtype)
+    ((96, 96, 52, "bfloat16"), dict()),  # the training render's shape
+    ((96, 96, 52, "float32"), dict(noise=True)),
+    ((8, 8, 9, "bfloat16"), dict(clamp_mode="relu")),
+    ((5, 130, 4, "float32"), dict(last_back=True)),
+    ((1, 1, 2, "float32"), dict(white_back=True)),
+    ((200, 56, 256, "float32"), dict(clamp_mode="relu", last_back=True, white_back=True, noise=True)),
+])
+@pytest.mark.parametrize("sorted_halves", [False, True])
+def test_k1_backward_matches_plain_on_card(shape, opts, sorted_halves):
+    """The CUDA backward against autograd through the plain version, depths on
+    a 1/8 grid (ties), densities that keep every alpha below 1 - 1e-6: max abs
+    err <= 1e-4 x max|grad| in fp32, 1e-2 x in bf16 (the gradient is rounded
+    to bf16 once; the plain version rounds the same sums in another order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    (sa, sb, c1, dtype), opts = shape, dict(opts)
+    rng = np.random.RandomState(sa + 3 * sb + c1)
+    B, R = 2, 40
+    args = []
+    for s in (sa, sb):
+        z = np.round((rng.rand(B, R, s, 1) * 1.05 + 2.25) * 8).astype(np.float32) / 8
+        if sorted_halves:
+            z = np.sort(z, axis=2)
+        v = rng.randn(B, R, s, c1).astype(np.float32)
+        args += [t(z).cuda(), t(v).to("cuda", getattr(torch, dtype))]
+    args.append(t(rng.rand(B, R, 1).astype(np.float32) + 0.5).cuda())
+    if opts.pop("noise", False):
+        opts["noise"] = t(rng.randn(B, R, sa + sb).astype(np.float32) * 0.5).cuda()
+    cot = [t(rng.randn(B, R, n).astype(np.float32)).cuda() for n in (c1 - 1, 1, 1)]
+    before = ray_march.sort_integrate_backward.launches
+    got = ray_march.sort_integrate_backward(*args, *cot, **opts)
+    assert ray_march.sort_integrate_backward.launches == before + 1
+    ref = ray_march.sort_integrate_backward_plain(*args, *cot, **opts)
+    scale = max(float(r.float().abs().max()) for r in ref)
+    tol = 1e-4 if dtype == "float32" else 1e-2
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and g.shape == r.shape
+        assert torch.isfinite(g.float()).all()
+        assert float((g.float() - r.float()).abs().max()) <= tol * scale
+
+
+@pytest.mark.cuda
+def test_render_fine_carries_the_gradient_on_card():
+    """The fine composite on the card is differentiable: a loss on render_fine's
+    outputs reaches the planes and the decoder through K1's backward, with the
+    gradients of the CPU (plain K1) render on the same weights."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from ide3d_tpu_torch.render.camera import look_at_pose
+    from ide3d_tpu_torch.render.renderer import RenderParams, TriplaneRenderer
+
+    rng = np.random.RandomState(11)
+    planes = [t(rng.randn(2, 16, 16, n).astype(np.float32)) for n in (24, 15)]
+    c2w = look_at_pose(1.7, 1.5, [0.0, 0.0, 0.0], radius=2.7, batch_size=2)
+    rp = RenderParams(img_size=8, num_steps=10)
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        r = TriplaneRenderer(feature_channels=8, seg_channels=5)
+        r.init_parameters(torch.Generator().manual_seed(0))
+        r = r.to(dev)
+        img_v, seg_v = (p.clone().to(dev).requires_grad_() for p in planes)
+        before = ray_march.sort_integrate_backward.launches
+        out = r.render(img_v, seg_v, c2w.to(dev), rp)
+        loss = sum((out[k] * (i + 1)).square().mean() for i, k in enumerate(
+            ("feature", "seg", "depth", "weights_sum")))
+        loss.backward()
+        if dev == "cuda":
+            assert ray_march.sort_integrate_backward.launches == before + 1
+        grads[dev] = [img_v.grad, seg_v.grad, r.dec_w1.grad, r.dec_w2.grad]
+    for g_cpu, g_cuda in zip(grads["cpu"], grads["cuda"]):
+        assert g_cuda is not None and float(g_cuda.abs().max()) > 0
+        scale = float(g_cpu.abs().max())
+        assert float((g_cuda.cpu() - g_cpu).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_k1_autograd_refuses_depth_gradients_on_card():
+    """The CUDA composite differentiates in the values only: a depth, |ray_d|
+    or noise tensor that requires a gradient is refused, not silently dropped."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.RandomState(1)
+    z = t(np.sort(rng.rand(1, 8, 4, 1).astype(np.float32), axis=2)).cuda()
+    v = t(rng.randn(1, 8, 4, 5).astype(np.float32)).cuda()
+    n = t(rng.rand(1, 8, 1).astype(np.float32) + 0.5).cuda()
+    feat, _, _ = ray_march.sort_integrate(z, v.requires_grad_(), z, v, n)
+    assert feat.grad_fn is not None
+    with pytest.raises(ValueError):
+        ray_march.sort_integrate(z.requires_grad_(), v, z.detach(), v, n)

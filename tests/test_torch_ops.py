@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from ide3d_tpu_torch.ops import bias_act as tba
+from ide3d_tpu_torch.ops import conv2d_gradfix
 from ide3d_tpu_torch.ops import conv2d_resample as tcr
 from ide3d_tpu_torch.ops import grid_sample as tgs
 from ide3d_tpu_torch.ops import modulated_conv as tmc
@@ -21,6 +22,15 @@ from ide3d_tpu_torch.ops import upfirdn2d as tud
 jba, jcr, jgs, jmc, jud = (importlib.import_module(f"ide3d_tpu.ops.{m}") for m in (
     "bias_act", "conv2d_resample", "grid_sample", "modulated_conv", "upfirdn2d"))
 ATOL = 1e-5
+
+
+@pytest.fixture(autouse=True)
+def _autograd_on():
+    """Some test modules turn autograd off when they are imported
+    (torch.set_grad_enabled(False)), and a test worker imports every module."""
+    with torch.enable_grad():
+        yield
+
 
 
 def nchw(a: np.ndarray) -> torch.Tensor:
@@ -134,3 +144,27 @@ def test_triplane_keeps_dtype_and_samples_in_fp32():
     ref = tgs.sample_from_triplane(coords, planes.float())
     assert got.dtype == torch.bfloat16
     close(got.float().numpy(), ref.bfloat16().float().numpy(), atol=0)
+
+
+@pytest.mark.parametrize("stride,padding,groups", [(1, 1, 1), (2, 0, 1), (1, (2, 1), 4), (2, 1, 4)])
+def test_conv2d_gradfix_matches_conv2d_to_second_order(stride, padding, groups):
+    """Forward, first and second derivatives of conv2d_gradfix.conv2d equal
+    F.conv2d's (float64): the R1 shape, a gradient of a squared input
+    gradient, taken in the weights; odd sizes exercise the output padding."""
+    g = torch.Generator().manual_seed(stride + groups)
+    x = torch.randn(2, 8, 9, 7, generator=g, dtype=torch.float64, requires_grad=True)
+    w = torch.randn(4, 8 // groups, 3, 3, generator=g, dtype=torch.float64, requires_grad=True)
+
+    def r1(conv):
+        y = conv(x, w, stride=stride, padding=padding, groups=groups)
+        (gx,) = torch.autograd.grad((y.tanh() * y).sum(), x, create_graph=True)
+        return gx, torch.autograd.grad(gx.square().sum(), w)[0]
+
+    for got, ref in zip(r1(conv2d_gradfix.conv2d), r1(torch.nn.functional.conv2d)):
+        np.testing.assert_allclose(got.detach().numpy(), ref.detach().numpy(), rtol=1e-10, atol=1e-10)
+    assert torch.autograd.gradgradcheck(
+        lambda x, w: conv2d_gradfix.conv2d(x, w, stride=stride, padding=padding, groups=groups), (x, w))
+    with conv2d_gradfix.no_weight_gradients():
+        gx, gw = torch.autograd.grad(conv2d_gradfix.conv2d(x, w, stride, padding, groups).sum(), (x, w),
+                                     allow_unused=True)
+    assert gx is not None and gw is None
