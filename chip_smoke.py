@@ -643,6 +643,19 @@ def _k1_cotangents(gen, args):
     return [torch.randn(B, R, n, generator=gen).cuda() for n in (c1 - 1, 1, 1)]
 
 
+def training_k1_sets(gen, n: int = 2) -> list:
+    """n (args, cotangents) pairs at the training render's K1 inputs: bf16, B=4,
+    coarse half sorted (jittered within its bins), fine half unsorted (random
+    CDF positions)."""
+    sets = []
+    for _ in range(n):
+        a = k1_inputs(gen, torch.bfloat16, B=4, sorted_halves=True)
+        fine = k1_inputs(gen, torch.bfloat16, B=4)
+        args = (a[0], a[1], fine[2], fine[3], a[4])
+        sets.append((args, _k1_cotangents(gen, args)))
+    return sets
+
+
 def train_k1_backward(smi: str) -> dict:
     """K1's backward at the training render's shape (B=4) against autograd
     through the plain version, every option, then timed."""
@@ -670,14 +683,8 @@ def train_k1_backward(smi: str) -> dict:
                 errs[name] = err
             del args, cot
 
-    # Timed at the training render's inputs: bf16, coarse half sorted (jittered
-    # within its bins), fine half unsorted (random CDF positions). Two input sets.
-    sets = []
-    for _ in range(2):
-        a = k1_inputs(gen, torch.bfloat16, B=4, sorted_halves=True)
-        fine = k1_inputs(gen, torch.bfloat16, B=4)
-        args = (a[0], a[1], fine[2], fine[3], a[4])
-        sets.append((args, _k1_cotangents(gen, args)))
+    # Timed at the training render's inputs, two sets.
+    sets = training_k1_sets(gen)
     bwd = [lambda s=s: sort_integrate_backward(*s[0], *s[1]) for s in sets]
     both = [lambda s=s: (sort_integrate(*s[0]), sort_integrate_backward(*s[0], *s[1])) for s in sets]
     fwd = [lambda s=s: sort_integrate(*s[0]) for s in sets]

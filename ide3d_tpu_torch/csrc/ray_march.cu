@@ -69,6 +69,7 @@
 
 #include <climits>
 #include <cstdint>
+#include <cstring>
 
 namespace {
 
@@ -260,6 +261,25 @@ __device__ void issue_ray(const Args<T>& a, int ray, unsigned char* stage, uint6
   if (a.noise) bulk_load(z + pl.noise_off, a.noise + static_cast<size_t>(ray) * S, S * 4u, bar);
   bulk_load(v, a.v_a + static_cast<size_t>(ray) * s_a * a.channels, s_a * rb, bar);
   bulk_load(v + s_a * rb, a.v_b + static_cast<size_t>(ray) * s_b * a.channels, s_b * rb, bar);
+}
+
+// The block: copy value rows [r0, r1) of ray `ray` (both halves) into `buf`
+// by plain loads, for the streamed plan.
+template <typename T>
+__device__ __forceinline__ void copy_rows(const Args<T>& a, int ray, int r0, int r1, T* buf) {
+  const int t = threadIdx.x, s_a = a.s_a, s_b = a.s_b, c1 = a.channels;
+  if (r0 < s_a) {
+    const T* g = a.v_a + (static_cast<size_t>(ray) * s_a + r0) * c1;
+    const int n = (min(r1, s_a) - r0) * c1;
+    for (int e = t; e < n; e += kThreads) buf[e] = g[e];
+  }
+  if (r1 > s_a) {
+    const int rb0 = max(r0, s_a);
+    const T* g = a.v_b + (static_cast<size_t>(ray) * s_b + rb0 - s_a) * c1;
+    const int n = (r1 - rb0) * c1;
+    T* d = buf + (rb0 - r0) * c1;
+    for (int e = t; e < n; e += kThreads) d[e] = g[e];
+  }
 }
 
 
@@ -562,19 +582,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       T* buf = reinterpret_cast<T*>(stage + pl.vals_off);
       for (int r0 = 0; r0 < S; r0 += pl.chunk_rows) {
         const int r1 = min(S, r0 + pl.chunk_rows);
-        if (!pl.staged) {  // copy rows [r0, r1) of this ray into the stage
-          if (r0 < s_a) {
-            const T* g = a.v_a + (static_cast<size_t>(ray) * s_a + r0) * c1;
-            const int n = (min(r1, s_a) - r0) * c1;
-            for (int e = t; e < n; e += kThreads) buf[e] = g[e];
-          }
-          if (r1 > s_a) {
-            const int rb0 = max(r0, s_a);
-            const T* g = a.v_b + (static_cast<size_t>(ray) * s_b + rb0 - s_a) * c1;
-            const int n = (r1 - rb0) * c1;
-            T* d = buf + (rb0 - r0) * c1;
-            for (int e = t; e < n; e += kThreads) d[e] = g[e];
-          }
+        if (!pl.staged) {
+          copy_rows(a, ray, r0, r1, buf);
           __syncthreads();
         }
         const T* rows = pl.staged ? buf + static_cast<size_t>(r0) * c1 : buf;
@@ -607,11 +616,14 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 
 // ---------------------------------------------------------------- the backward
 //
-// The gradient of K1 with respect to both value slabs, given the cotangents
-// g_feat [n_rays, C], g_depth [n_rays], g_wsum [n_rays]. Nothing is saved
-// between the passes: the kernel recomputes the forward's stable order, x_k =
-// delta_k * density_k, alpha_k, T_k and w_k (the same arithmetic as the
-// forward), then per sorted sample k
+// The gradient of K1 with respect to both value slabs. It stands for the JAX
+// package's autodiff of the fine composite `integrate_rays_merged`
+// (ide3d_tpu/render/integration.py:85), whose forward the TPU kernel
+// `sort_integrate_pallas` (ide3d_tpu/ops/pallas/ray_march.py:121) computes.
+// Given the cotangents g_feat [n_rays, C], g_depth [n_rays], g_wsum [n_rays],
+// and nothing saved between the passes, it recomputes the forward's stable
+// order, x_k = delta_k * density_k, alpha_k, T_k and w_k (the same arithmetic
+// as the forward), then per sorted sample k
 //   a_k = g_feat . f_k + g_depth z_k + g_wsum,
 //   L_k = a_k - [last_back] a_{S-1} - [white_back] sum(g_feat),
 //   dL/df_k = w'_k g_feat          (w' the weights after last_back),
@@ -621,31 +633,49 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 // sample (delta 1e10 |ray_d|) has an empty suffix, set to 0 rather than
 // subtracted, and its e^{-x} underflows to 0 before it meets delta: no inf * 0.
 //
-// Bound: bytes. The kernel reads the values and depths and writes a gradient
-// as large as the values: at B=4, R=4096, S=96+96, C+1=52, bf16, 670 MB, 200 us
-// at 3.35 TB/s. Design, simple first: one 4-warp block per ray; the depths,
-// noise and cotangent row are staged in shared memory by plain loads; a warp
-// reads each value row once (coalesced over channels) for a_k and sigma; the
-// rank is the forward's rank_items; the gradient rows are written flat over
-// the ray's contiguous slab, so neighbouring threads write neighbouring values.
+// Bound on the H100: bytes. A ray reads its values once and writes a gradient
+// as large: at B=4, R=4096, S=96+96, C+1=52, bf16 that is 40,920 B a ray
+// (19,968 of values, 19,968 of gradient, 768 of depths, 216 of cotangents and
+// |ray_d|), 670,433,280 B in all, 200.1 us at 3.35 TB/s. The instruction
+// time of the arithmetic (the forward's rank and scans again, two passes over
+// the row values) is of the same order, so the design keeps the bytes moving
+// asynchronously and the instructions few:
+//   1. Staged, asynchronous reads, the forward's own: one stage a block filled
+//      by TMA bulk copies (make_plan, issue_ray) and a persistent grid sized
+//      by occupancy, so the copies of the SM's other blocks are in flight
+//      while one block ranks and scans. The depths are copied out of the
+//      stage for the rank; g_feat (C fp32, not a multiple of 16 bytes) is a
+//      plain load, prefetched into registers one ray ahead with the scalars.
+//   2. Wide reads: a thread takes whole rows, its own samples', and reads
+//      them from the stage in the widest chunk that divides a row (8 bytes at
+//      the training shape: 13 loads a row, rows 104 bytes apart falling on
+//      distinct banks), g_feat broadcast from shared memory; sigma_i comes
+//      from the stage in the first pass over the samples, as the forward's.
+//   3. Wide, asynchronous writes: the same threads write their gradient rows
+//      over the stage's values (read by then) in the same chunks, and one
+//      thread sends each half's slab with a TMA bulk store
+//      (cp.async.bulk.global.shared::cta.bulk_group), full lines, no division
+//      per element. The stage is refilled with the next ray once the store
+//      has read it (wait_group.read), so one stage a block serves both
+//      directions and 9 blocks (kMinBlocks, 9 rays) stay resident per SM, as
+//      for the forward. Measured on the H100: a second stage for the
+//      gradient (5 blocks a SM, the next ray's copies sent before the rank)
+//      and 6 or 8 blocks a SM were slower (PERF.md).
+// Shapes the stage does not take (as the forward: a half that is not a
+// multiple of 16 bytes, a pointer, the gradients' included, that is not
+// 16-byte aligned, a ray above 64 KB) run streamed: depths and noise read
+// directly, the values copied into the stage in row chunks by the block, a
+// warp per row for the dots, and the gradient written flat with its row and
+// column stepped, not divided.
 
 template <typename T>
 struct BwdArgs {
-  const float* z_a;
-  const T* v_a;
-  int s_a;
-  const float* z_b;
-  const T* v_b;
-  int s_b;
-  const float* ray_norm;
-  const float* noise;  // [n_rays, S] or null
-  int n_rays, channels, last_back, white_back;
-  int zb_off, noise_off, stage_floats;  // the depth stage, as the forward's Plan lays it out
+  Args<T> f;             // the forward's inputs and launch plan; its outputs are unused
   const float* g_feat;   // [n_rays, C]
   const float* g_depth;  // [n_rays]
   const float* g_wsum;   // [n_rays]
-  T* gv_a;
-  T* gv_b;
+  T* gv_a;               // [n_rays, s_a, channels]
+  T* gv_b;               // [n_rays, s_b, channels]
 };
 
 template <typename T>
@@ -670,228 +700,368 @@ __device__ __forceinline__ float warp_exclusive_suffix(float v, float& total) {
   return lane == 31 ? 0.f : e;
 }
 
-// Shared memory of the backward: the depth stage (z_a, z_b at zb_off, noise at
-// noise_off; the sorted depths overlay it once ranked), the per-warp sums, then
-// by input index: raw sigma -> density -> w'; density' -> dL/dsigma; g_feat.f;
-// then g_feat of the ray (C) and the input index of each sorted position (S bytes).
-int bwd_smem_bytes(int stage_floats, int S, int C) {
-  return 4 * (stage_floats + kRedFloats + 3 * S + C) + S;
+// Shared -> global bulk copy (dst, src and bytes multiples of 16), in the
+// issuing thread's bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(dst),
+               "r"(smem_addr(src)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+// Until the thread's committed bulk stores have read their shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+// Until they have completed.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
-template <typename T, bool kRelu>
-__global__ void __launch_bounds__(kThreads)
-    sort_integrate_backward_kernel(const __grid_constant__ BwdArgs<T> a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int s_a = a.s_a, s_b = a.s_b, S = s_a + s_b;
-  const int c1 = a.channels, C = c1 - 1;
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const size_t ray = blockIdx.x;
-  float* zarea = reinterpret_cast<float*>(smem);
-  float* red = zarea + a.stage_floats;
-  float* wd = red + kRedFloats;  // raw sigma, then density, then w', by input index
-  float* dsig = wd + S;          // density', then dL/dsigma, by input index
-  float* dot = dsig + S;         // g_feat . f_i, by input index
-  float* gf = dot + S;           // g_feat of this ray
-  uint8_t* src = reinterpret_cast<uint8_t*>(gf + C);
-  const int ni = (S + kThreads - 1) / kThreads;  // sorted positions per thread, contiguous
+// W bytes as one load or store.
+template <int W> struct Bits;
+template <> struct Bits<16> { using type = uint4; };
+template <> struct Bits<8> { using type = uint2; };
+template <> struct Bits<4> { using type = uint32_t; };
+template <> struct Bits<2> { using type = uint16_t; };
 
-  // 0. Depths, noise and the feature cotangent into shared memory.
-  for (int i = t; i < s_a; i += kThreads) zarea[i] = a.z_a[ray * s_a + i];
-  for (int i = t; i < s_b; i += kThreads) zarea[a.zb_off + i] = a.z_b[ray * s_b + i];
-  if (a.noise)
-    for (int i = t; i < S; i += kThreads) zarea[a.noise_off + i] = a.noise[ray * S + i];
-  for (int c = t; c < C; c += kThreads) gf[c] = a.g_feat[ray * C + c];
-  __syncthreads();
-
-  // 1. A warp a value row: g_feat . f_i over the lanes, and the raw sigma.
-  for (int i = warp; i < S; i += kWarps) {
-    const T* row = i < s_a ? a.v_a + (ray * s_a + i) * c1 : a.v_b + (ray * s_b + i - s_a) * c1;
-    float acc = 0.f;
-    for (int c = lane; c < c1; c += 32) {
-      const float v = to_f32(row[c]);
-      if (c < C) acc = fmaf(gf[c], v, acc);
-      else wd[i] = v;
-    }
-    acc = warp_allsum(acc);
-    if (lane == 0) dot[i] = acc;
-  }
-  if (warp == 0) {  // sum(g_feat), the white_back term
-    float g = 0.f;
-    for (int c = lane; c < C; c += 32) g += gf[c];
-    g = warp_allsum(g);
-    if (lane == 0) red[3 * kWarps] = g;
-  }
-  __syncthreads();
-
-  // 2. Input sample i = k * kThreads + t: depth, density and its derivative, sortedness.
-  float zi[kItems];
-  bool ok_a = true, ok_b = true;
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int i = k * kThreads + t;
-    zi[k] = 0.f;
-    if (i < S) {
-      const bool in_a = i < s_a;
-      const int zo = in_a ? i : a.zb_off + i - s_a;
-      zi[k] = zarea[zo];
-      if (in_a && i + 1 < s_a) ok_a &= zi[k] <= zarea[zo + 1];
-      if (!in_a && i + 1 < S) ok_b &= zi[k] <= zarea[zo + 1];
-      float sig = wd[i];
-      if (a.noise) sig += zarea[a.noise_off + i];
-      wd[i] = clamp_density<kRelu>(sig);
-      dsig[i] = kRelu ? (sig > 0.f ? 1.f : 0.f) : 1.f / (1.f + expf(-sig));
-    }
-  }
-  const bool sorted_a = __syncthreads_and(ok_a);
-  const bool sorted_b = __syncthreads_and(ok_b);
-
-  // 3. The forward's stable rank; the sorted depths overlay the stage's depths.
-  int rank[kItems];
-  rank_items(zarea, s_a, sorted_a, zarea + a.zb_off, s_b, sorted_b, zi, rank);
-  __syncthreads();
-  float* zs = zarea;
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int i = k * kThreads + t;
-    if (i < S) {
-      zs[rank[k]] = zi[k];
-      src[rank[k]] = static_cast<uint8_t>(i);
-    }
-  }
-  __syncthreads();
-
-  // 4. The forward again: delta, x, alpha, T (block scan of -x), w; sum of w.
-  const float norm = a.ray_norm[ray];
-  float w[kItems], tx[kItems], delta[kItems], ex[kItems], zk[kItems];
-  float run = 0.f;
-#pragma unroll
-  for (int m = 0; m < kItems; ++m) {
-    const int k = t * ni + m;
-    zk[m] = delta[m] = 0.f;
-    ex[m] = 1.f;
-    w[m] = run;  // exclusive sum within the thread, for now
-    tx[m] = 0.f;  // alpha, for now
-    if (m < ni && k < S) {
-      zk[m] = zs[k];
-      delta[m] = (k == S - 1 ? kLastDelta : zs[k + 1] - zk[m]) * norm;
-      const float x = delta[m] * wd[src[k]];
-      ex[m] = expf(-x);
-      tx[m] = 1.f - ex[m];
-      run -= x;
-    }
-  }
-  const float in_warp = warp_exclusive_scan(run);
-  if (lane == 31) red[warp] = in_warp + run;
-  __syncthreads();
-  float prefix = in_warp;
-  for (int v = 0; v < warp; ++v) prefix += red[v];
-  float ws = 0.f;
-#pragma unroll
-  for (int m = 0; m < kItems; ++m) {
-    const float trans = expf(prefix + w[m]);
-    w[m] = tx[m] * trans;  // alpha * T, as the forward computes it
-    tx[m] = trans;
-    ws += w[m];
-  }
-  ws = warp_allsum(ws);
-  if (lane == 0) red[kWarps + warp] = ws;
-  __syncthreads();
-  ws = 0.f;
-  for (int v = 0; v < kWarps; ++v) ws += red[kWarps + v];
-  const float rest = 1.f - ws;
-
-  // 5. L_k, and the exclusive suffix sum of L_j w_j in depth order.
-  const float gd = a.g_depth[ray], gw = a.g_wsum[ray];
-  const float a_last = dot[src[S - 1]] + gd * zs[S - 1] + gw;
-  const float shift = (a.last_back ? a_last : 0.f) + (a.white_back ? red[3 * kWarps] : 0.f);
-  float L[kItems], suf[kItems];
+// g_feat . f of one value row of c1 values read in W-byte chunks (gf is 0 at
+// the sigma column), summed in column order.
+template <typename T, int W>
+__device__ __forceinline__ float row_dot(const T* row, const float* gf, int c1) {
+  constexpr int kN = W / sizeof(T);
   float acc = 0.f;
+  for (int c = 0; c < c1; c += kN) {
+    const auto r = *reinterpret_cast<const typename Bits<W>::type*>(row + c);
+    T e[kN];
+    memcpy(e, &r, W);
 #pragma unroll
-  for (int m = kItems - 1; m >= 0; --m) {
-    const int k = t * ni + m;
-    L[m] = 0.f;
-    if (m < ni && k < S) L[m] = dot[src[k]] + gd * zk[m] + gw - shift;
-    suf[m] = acc;
-    acc += L[m] * w[m];
+    for (int q = 0; q < kN; ++q) acc = fmaf(gf[c + q], to_f32(e[q]), acc);
   }
-  float warp_total;
-  float after = warp_exclusive_suffix(acc, warp_total);
-  if (lane == 0) red[2 * kWarps + warp] = warp_total;
-  __syncthreads();
-  for (int v = warp + 1; v < kWarps; ++v) after += red[2 * kWarps + v];
+  return acc;
+}
 
-  // 6. dL/dsigma and w' by input index.
+// The gradient row [w g_feat, ds] of one sample into `row`, in W-byte chunks.
+template <typename T, int W>
+__device__ __forceinline__ void row_grad(T* row, const float* gf, int c1, float w, float ds) {
+  constexpr int kN = W / sizeof(T);
+  for (int c = 0; c < c1; c += kN) {
+    T e[kN];
 #pragma unroll
-  for (int m = 0; m < kItems; ++m) {
-    const int k = t * ni + m;
-    if (m < ni && k < S) {
-      const int i = src[k];
-      const float suffix = k == S - 1 ? 0.f : after + suf[m];
-      const float dx = L[m] * tx[m] * ex[m] - suffix;
-      dsig[i] = dx * (delta[m] * dsig[i]);
-      wd[i] = (a.last_back && k == S - 1) ? w[m] + rest : w[m];
-    }
+    for (int q = 0; q < kN; ++q) e[q] = from_f32<T>(w * gf[c + q]);
+    typename Bits<W>::type r;
+    memcpy(&r, e, W);
+    *reinterpret_cast<typename Bits<W>::type*>(row + c) = r;
   }
-  __syncthreads();
+  row[c1 - 1] = from_f32<T>(ds);
+}
 
-  // 7. The gradient rows [w'_i g_feat, dL/dsigma_i], flat over each half's slab.
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int first = h ? s_a : 0;
-    const int n = (h ? s_b : s_a) * c1;
-    T* out = h ? a.gv_b + ray * s_b * c1 : a.gv_a + ray * s_a * c1;
-    for (int e = t; e < n; e += kThreads) {
-      const int row = e / c1, col = e - row * c1;
-      const int i = first + row;
-      out[e] = from_f32<T>(col < C ? wd[i] * gf[col] : dsig[i]);
-    }
-  }
+// Shared memory of the backward: the mbarrier; the stage (the forward's plan;
+// the gradient rows overlay its values once they are read); the depths of
+// both halves as the stage lays them out (the sorted depths overlay them once
+// ranked); the per-warp sums; g_feat in two buffers of round_up(C + 1, 4),
+// 0 from column C on (by ray parity, so the next ray's never overwrites one
+// still read); then by input index: density -> w'; density' -> dL/dsigma;
+// g_feat . f_i; the input index of each sorted position (S bytes).
+int bwd_smem_bytes(const Plan& p, int S, int channels) {
+  return kHeaderBytes + p.stride +
+         4 * (p.noise_off + kRedFloats + 2 * round_up(channels, 4) + 3 * S) + S;
 }
 
 template <typename T, bool kRelu>
-int launch_backward(const BwdArgs<T>& a, cudaStream_t st) {
-  const int S = a.s_a + a.s_b, C = a.channels - 1;
-  sort_integrate_backward_kernel<T, kRelu>
-      <<<a.n_rays, kThreads, bwd_smem_bytes(a.stage_floats, S, C), st>>>(a);
-  return static_cast<int>(cudaGetLastError());
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    sort_integrate_backward_kernel(const __grid_constant__ BwdArgs<T> a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Args<T>& f = a.f;
+  const Plan& pl = f.plan;
+  const int s_a = f.s_a, s_b = f.s_b, S = s_a + s_b;
+  const int c1 = f.channels, C = c1 - 1, C4 = (c1 + 3) & ~3;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  unsigned char* stage = smem + kHeaderBytes;
+  T* vst = reinterpret_cast<T*>(stage + pl.vals_off);       // the staged value rows
+  float* zc = reinterpret_cast<float*>(stage + pl.stride);  // depths, then sorted depths
+  float* red = zc + pl.noise_off;
+  float* gfs = red + kRedFloats;  // g_feat, two buffers
+  float* wd = gfs + 2 * C4;       // density, then w', by input index
+  float* dsig = wd + S;           // density', then dL/dsigma, by input index
+  float* dot = dsig + S;          // g_feat . f_i, by input index
+  uint8_t* src = reinterpret_cast<uint8_t*>(dot + S);  // input index by position
+
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int ni = (S + kThreads - 1) / kThreads;  // sorted positions per thread, contiguous
+  int W = 16;  // staged: a thread's row passes use the widest chunk that divides a row
+  while ((c1 * static_cast<int>(sizeof(T))) % W) W >>= 1;
+  // Streamed writes: element t + kThreads * n of a half, its (row, col) stepped.
+  const int step_rows = kThreads / c1, step_cols = kThreads % c1;
+
+  for (int c = C + t; c < C4; c += kThreads) gfs[c] = gfs[C4 + c] = 0.f;
+  if (pl.staged && t == 0) {  // the grid has at most one block per ray
+    mbar_init(bar);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    issue_ray(f, blockIdx.x, stage, bar);
+  }
+  __syncthreads();
+
+  // The cotangents and |ray_d| of a ray, loaded one ray ahead.
+  float pf_gf[kChans], pf_gd, pf_gw, pf_norm;
+  auto prefetch = [&](int r) {
+#pragma unroll
+    for (int q = 0; q < kChans; ++q) {
+      const int c = t + kThreads * q;
+      pf_gf[q] = c < C ? a.g_feat[static_cast<size_t>(r) * C + c] : 0.f;
+    }
+    pf_gd = a.g_depth[r];
+    pf_gw = a.g_wsum[r];
+    pf_norm = f.ray_norm[r];
+  };
+  prefetch(blockIdx.x);
+
+  int it = 0;
+  for (int ray = blockIdx.x; ray < f.n_rays; ray += gridDim.x, ++it) {
+    const size_t rs = ray;
+    const float gd = pf_gd, gw = pf_gw, norm = pf_norm;
+    float* gf = gfs + (it & 1) * C4;
+#pragma unroll
+    for (int q = 0; q < kChans; ++q) {
+      const int c = t + kThreads * q;
+      if (c < C) gf[c] = pf_gf[q];
+    }
+    if (pl.staged) mbar_wait(bar, it & 1);
+    const float* zst = reinterpret_cast<const float*>(stage);
+
+    // 1. Input sample i = k * kThreads + t: its depth (into zc), sigma + noise.
+    float zi[kItems], sg[kItems];
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const int i = k * kThreads + t;
+      zi[k] = sg[k] = 0.f;
+      if (i < S) {
+        const bool in_a = i < s_a;
+        const int zo = in_a ? i : pl.zb_off + i - s_a;
+        if (pl.staged) {
+          zi[k] = zst[zo];
+          sg[k] = to_f32(vst[static_cast<size_t>(i) * c1 + C]);
+          if (f.noise) sg[k] += zst[pl.noise_off + i];
+        } else {
+          zi[k] = in_a ? f.z_a[rs * s_a + i] : f.z_b[rs * s_b + i - s_a];
+          sg[k] = to_f32(in_a ? f.v_a[(rs * s_a + i) * c1 + C]
+                              : f.v_b[(rs * s_b + i - s_a) * c1 + C]);
+          if (f.noise) sg[k] += f.noise[rs * S + i];
+        }
+        zc[zo] = zi[k];
+      }
+    }
+    __syncthreads();  // zc and g_feat
+    bool ok_a = true, ok_b = true;
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const int i = k * kThreads + t;
+      if (i < S) {
+        const bool in_a = i < s_a;
+        const int zo = in_a ? i : pl.zb_off + i - s_a;
+        if (in_a && i + 1 < s_a) ok_a &= zi[k] <= zc[zo + 1];
+        if (!in_a && i + 1 < S) ok_b &= zi[k] <= zc[zo + 1];
+      }
+    }
+
+    // 2. g_feat . f_i of every value row, into dot. Staged: thread t takes its
+    // samples' rows, W bytes at a time (rows 104 or 208 bytes apart hit
+    // distinct banks). Streamed: the rows come in chunks, a warp a row.
+    if (pl.staged) {
+#pragma unroll
+      for (int k = 0; k < kItems; ++k) {
+        const int i = k * kThreads + t;
+        if (i < S) {
+          const T* row = vst + static_cast<size_t>(i) * c1;
+          dot[i] = W == 16 ? row_dot<T, 16>(row, gf, c1)
+                   : W == 8 ? row_dot<T, 8>(row, gf, c1)
+                   : W == 4 ? row_dot<T, 4>(row, gf, c1)
+                            : row_dot<T, sizeof(T)>(row, gf, c1);
+        }
+      }
+    } else {
+      T* buf = vst;
+      for (int r0 = 0; r0 < S; r0 += pl.chunk_rows) {
+        const int r1 = min(S, r0 + pl.chunk_rows);
+        copy_rows(f, ray, r0, r1, buf);
+        __syncthreads();
+        for (int r = r0 + warp; r < r1; r += kWarps) {  // a warp a row
+          const T* row = buf + static_cast<size_t>(r - r0) * c1;
+          float acc = 0.f;
+          for (int c = lane; c < C; c += 32) acc = fmaf(gf[c], to_f32(row[c]), acc);
+          acc = warp_allsum(acc);
+          if (lane == 0) dot[r] = acc;
+        }
+        __syncthreads();  // the chunk is read before the next one lands
+      }
+    }
+    const bool sorted_a = __syncthreads_and(ok_a);
+    const bool sorted_b = __syncthreads_and(ok_b);
+    const int next = ray + gridDim.x;
+    if (next < f.n_rays) prefetch(next);
+
+    // 3. Input sample i: density and its derivative; sum(g_feat), the
+    // white_back term (read after the rank's barrier).
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const int i = k * kThreads + t;
+      if (i < S) {
+        wd[i] = clamp_density<kRelu>(sg[k]);
+        dsig[i] = kRelu ? (sg[k] > 0.f ? 1.f : 0.f) : 1.f / (1.f + expf(-sg[k]));
+      }
+    }
+    if (warp == 0) {
+      float g = 0.f;
+      for (int c = lane; c < C; c += 32) g += gf[c];
+      g = warp_allsum(g);
+      if (lane == 0) red[3 * kWarps] = g;
+    }
+
+    // 4. The forward's stable rank; the sorted depths overlay zc.
+    int rank[kItems];
+    rank_items(zc, s_a, sorted_a, zc + pl.zb_off, s_b, sorted_b, zi, rank);
+    __syncthreads();
+    float* zs = zc;
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const int i = k * kThreads + t;
+      if (i < S) {
+        zs[rank[k]] = zi[k];
+        src[rank[k]] = static_cast<uint8_t>(i);
+      }
+    }
+    __syncthreads();
+
+    // 5. The forward again: delta, x, alpha, T (block scan of -x), w; sum of w.
+    float w[kItems], tx[kItems], delta[kItems], ex[kItems], zk[kItems];
+    float run = 0.f;
+#pragma unroll
+    for (int m = 0; m < kItems; ++m) {
+      const int k = t * ni + m;
+      zk[m] = delta[m] = 0.f;
+      ex[m] = 1.f;
+      w[m] = run;   // exclusive sum within the thread, for now
+      tx[m] = 0.f;  // alpha, for now
+      if (m < ni && k < S) {
+        zk[m] = zs[k];
+        delta[m] = (k == S - 1 ? kLastDelta : zs[k + 1] - zk[m]) * norm;
+        const float x = delta[m] * wd[src[k]];
+        ex[m] = expf(-x);
+        tx[m] = 1.f - ex[m];
+        run -= x;
+      }
+    }
+    const float in_warp = warp_exclusive_scan(run);
+    if (lane == 31) red[warp] = in_warp + run;
+    __syncthreads();
+    float prefix = in_warp;
+    for (int v = 0; v < warp; ++v) prefix += red[v];
+    float ws = 0.f;
+#pragma unroll
+    for (int m = 0; m < kItems; ++m) {
+      const float trans = expf(prefix + w[m]);
+      w[m] = tx[m] * trans;  // alpha * T, as the forward computes it
+      tx[m] = trans;
+      ws += w[m];
+    }
+    ws = warp_allsum(ws);
+    if (lane == 0) red[kWarps + warp] = ws;
+    __syncthreads();
+    ws = 0.f;
+    for (int v = 0; v < kWarps; ++v) ws += red[kWarps + v];
+    const float rest = 1.f - ws;
+
+    // 6. L_k, and the exclusive suffix sum of L_j w_j in depth order.
+    const float a_last = dot[src[S - 1]] + gd * zs[S - 1] + gw;
+    const float shift = (f.last_back ? a_last : 0.f) + (f.white_back ? red[3 * kWarps] : 0.f);
+    float L[kItems], suf[kItems];
+    float acc = 0.f;
+#pragma unroll
+    for (int m = kItems - 1; m >= 0; --m) {
+      const int k = t * ni + m;
+      L[m] = 0.f;
+      if (m < ni && k < S) L[m] = dot[src[k]] + gd * zk[m] + gw - shift;
+      suf[m] = acc;
+      acc += L[m] * w[m];
+    }
+    float warp_total;
+    float after = warp_exclusive_suffix(acc, warp_total);
+    if (lane == 0) red[2 * kWarps + warp] = warp_total;
+    __syncthreads();
+    for (int v = warp + 1; v < kWarps; ++v) after += red[2 * kWarps + v];
+
+    // 7. dL/dsigma and w' by input index.
+#pragma unroll
+    for (int m = 0; m < kItems; ++m) {
+      const int k = t * ni + m;
+      if (m < ni && k < S) {
+        const int i = src[k];
+        const float suffix = k == S - 1 ? 0.f : after + suf[m];
+        const float dx = L[m] * tx[m] * ex[m] - suffix;
+        dsig[i] = dx * (delta[m] * dsig[i]);
+        wd[i] = (f.last_back && k == S - 1) ? w[m] + rest : w[m];
+      }
+    }
+    __syncthreads();
+
+    // 8. The gradient rows [w'_i g_feat, dL/dsigma_i]. Staged: thread t writes
+    // its samples' rows over the stage's values, W bytes at a time; one
+    // thread sends each half's slab with a TMA bulk store and, once the store
+    // has read the stage, refills it with the next ray. Streamed: flat over
+    // each half's slab, neighbouring threads on neighbouring values.
+    if (pl.staged) {
+#pragma unroll
+      for (int k = 0; k < kItems; ++k) {
+        const int i = k * kThreads + t;
+        if (i < S) {
+          T* row = vst + static_cast<size_t>(i) * c1;
+          if (W == 16) row_grad<T, 16>(row, gf, c1, wd[i], dsig[i]);
+          else if (W == 8) row_grad<T, 8>(row, gf, c1, wd[i], dsig[i]);
+          else if (W == 4) row_grad<T, 4>(row, gf, c1, wd[i], dsig[i]);
+          else row_grad<T, sizeof(T)>(row, gf, c1, wd[i], dsig[i]);
+        }
+      }
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // the rows, to the bulk store
+      __syncthreads();
+      if (t == 0) {
+        const uint32_t rb = c1 * sizeof(T);
+        bulk_store(a.gv_a + rs * s_a * c1, vst, s_a * rb);
+        bulk_store(a.gv_b + rs * s_b * c1, vst + static_cast<size_t>(s_a) * c1, s_b * rb);
+        bulk_commit();
+        if (next < f.n_rays) {
+          bulk_wait_read();
+          issue_ray(f, next, stage, bar);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int first = h ? s_a : 0;
+        const int n = (h ? s_b : s_a) * c1;
+        T* out = h ? a.gv_b + rs * s_b * c1 : a.gv_a + rs * s_a * c1;
+        int row = t / c1, col = t % c1;
+        for (int e = t; e < n; e += kThreads) {
+          const int i = first + row;
+          out[e] = from_f32<T>(col < C ? wd[i] * gf[col] : dsig[i]);
+          row += step_rows;
+          col += step_cols;
+          if (col >= c1) {
+            col -= c1;
+            ++row;
+          }
+        }
+      }
+    }
+  }
+  if (pl.staged && t == 0) bulk_wait();  // the last slabs are written before the block ends
 }
 
-template <typename T>
-int dispatch_backward(const void* z_a, const void* v_a, int s_a, const void* z_b,
-                      const void* v_b, int s_b, const void* ray_norm, const void* noise,
-                      int n_rays, int channels, int relu, int last_back, int white_back,
-                      const void* g_feat, const void* g_depth, const void* g_wsum, void* gv_a,
-                      void* gv_b, cudaStream_t st) {
-  BwdArgs<T> a;
-  a.z_a = static_cast<const float*>(z_a);
-  a.v_a = static_cast<const T*>(v_a);
-  a.s_a = s_a;
-  a.z_b = static_cast<const float*>(z_b);
-  a.v_b = static_cast<const T*>(v_b);
-  a.s_b = s_b;
-  a.ray_norm = static_cast<const float*>(ray_norm);
-  a.noise = static_cast<const float*>(noise);
-  a.n_rays = n_rays;
-  a.channels = channels;
-  a.last_back = last_back;
-  a.white_back = white_back;
-  a.zb_off = round_up(s_a, 4);  // z_b 16-byte aligned: count_half reads it as float4
-  a.noise_off = a.zb_off + round_up(s_b, 4);
-  a.stage_floats = a.noise_off + (noise ? round_up(s_a + s_b, 4) : 0);
-  a.g_feat = static_cast<const float*>(g_feat);
-  a.g_depth = static_cast<const float*>(g_depth);
-  a.g_wsum = static_cast<const float*>(g_wsum);
-  a.gv_a = static_cast<T*>(gv_a);
-  a.gv_b = static_cast<T*>(gv_b);
-  return relu ? launch_backward<T, true>(a, st) : launch_backward<T, false>(a, st);
-}
-
-template <typename T, bool kRelu>
-int launch(int device, const Args<T>& a, cudaStream_t st) {
-  // Per instantiation: the shared-memory attribute and occupancy of the last plan.
-  static int set_smem = -1, blocks_per_sm = 0;
-  auto* kernel = sort_integrate_kernel<T, kRelu>;
-  const int smem = smem_bytes(a.plan, a.s_a + a.s_b);
+// Blocks of a persistent launch: as many as fit on the card at once, at most
+// one a ray. `set_smem` and `blocks_per_sm` keep the kernel's attribute and
+// occupancy for the shared-memory size of its last launch.
+int persistent_grid(const void* kernel, int smem, int n_rays, int device, int& set_smem,
+                    int& blocks_per_sm, int& grid) {
   cudaError_t err;
   if (smem != set_smem) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -904,17 +1074,43 @@ int launch(int device, const Args<T>& a, cudaStream_t st) {
   int sms = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = a.n_rays < blocks_per_sm * sms ? a.n_rays : blocks_per_sm * sms;
+  grid = n_rays < blocks_per_sm * sms ? n_rays : blocks_per_sm * sms;
+  return 0;
+}
+
+template <typename T, bool kRelu>
+int launch(int device, const Args<T>& a, cudaStream_t st) {
+  static int set_smem = -1, blocks_per_sm = 0;  // per instantiation
+  auto* kernel = sort_integrate_kernel<T, kRelu>;
+  const int smem = smem_bytes(a.plan, a.s_a + a.s_b);
+  int grid = 0;
+  const int err = persistent_grid(reinterpret_cast<const void*>(kernel), smem, a.n_rays, device,
+                                  set_smem, blocks_per_sm, grid);
+  if (err) return err;
   kernel<<<grid, kThreads, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, bool kRelu>
+int launch_backward(int device, const BwdArgs<T>& a, cudaStream_t st) {
+  static int set_smem = -1, blocks_per_sm = 0;  // per instantiation
+  auto* kernel = sort_integrate_backward_kernel<T, kRelu>;
+  const int smem = bwd_smem_bytes(a.f.plan, a.f.s_a + a.f.s_b, a.f.channels);
+  int grid = 0;
+  const int err = persistent_grid(reinterpret_cast<const void*>(kernel), smem, a.f.n_rays, device,
+                                  set_smem, blocks_per_sm, grid);
+  if (err) return err;
+  kernel<<<grid, kThreads, smem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The forward's inputs and launch plan. `out_a` and `out_b` are outputs the
+// plan also needs 16-byte aligned (the backward's gradients), or null.
 template <typename T>
-int dispatch(int device, const void* z_a, const void* v_a, int s_a, const void* z_b,
-             const void* v_b, int s_b, const void* ray_norm, const void* noise, int n_rays,
-             int channels, int relu, int last_back, int white_back, void* feat, void* depth,
-             void* wsum, cudaStream_t st) {
-  Args<T> a;
+Args<T> make_args(const void* z_a, const void* v_a, int s_a, const void* z_b, const void* v_b,
+                  int s_b, const void* ray_norm, const void* noise, int n_rays, int channels,
+                  int last_back, int white_back, const void* out_a, const void* out_b) {
+  Args<T> a{};
   a.z_a = static_cast<const float*>(z_a);
   a.v_a = static_cast<const T*>(v_a);
   a.s_a = s_a;
@@ -927,14 +1123,41 @@ int dispatch(int device, const void* z_a, const void* v_a, int s_a, const void* 
   a.channels = channels;
   a.last_back = last_back;
   a.white_back = white_back;
-  const void* copied[] = {z_a, v_a, z_b, v_b, noise};  // a null noise is aligned
-  bool aligned = true;  // the bulk copies need 16-byte-aligned addresses
+  const void* copied[] = {z_a, v_a, z_b, v_b, noise, out_a, out_b};  // null is aligned
+  bool aligned = true;  // the bulk copies and the vector writes need 16-byte-aligned addresses
   for (const void* p : copied) aligned &= (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
   a.plan = make_plan(s_a, s_b, channels, sizeof(T), noise != nullptr, aligned);
+  return a;
+}
+
+template <typename T>
+int dispatch(int device, const void* z_a, const void* v_a, int s_a, const void* z_b,
+             const void* v_b, int s_b, const void* ray_norm, const void* noise, int n_rays,
+             int channels, int relu, int last_back, int white_back, void* feat, void* depth,
+             void* wsum, cudaStream_t st) {
+  Args<T> a = make_args<T>(z_a, v_a, s_a, z_b, v_b, s_b, ray_norm, noise, n_rays, channels,
+                           last_back, white_back, nullptr, nullptr);
   a.feat = static_cast<float*>(feat);
   a.depth = static_cast<float*>(depth);
   a.wsum = static_cast<float*>(wsum);
   return relu ? launch<T, true>(device, a, st) : launch<T, false>(device, a, st);
+}
+
+template <typename T>
+int dispatch_backward(int device, const void* z_a, const void* v_a, int s_a, const void* z_b,
+                      const void* v_b, int s_b, const void* ray_norm, const void* noise,
+                      int n_rays, int channels, int relu, int last_back, int white_back,
+                      const void* g_feat, const void* g_depth, const void* g_wsum, void* gv_a,
+                      void* gv_b, cudaStream_t st) {
+  BwdArgs<T> a;
+  a.f = make_args<T>(z_a, v_a, s_a, z_b, v_b, s_b, ray_norm, noise, n_rays, channels, last_back,
+                     white_back, gv_a, gv_b);
+  a.g_feat = static_cast<const float*>(g_feat);
+  a.g_depth = static_cast<const float*>(g_depth);
+  a.g_wsum = static_cast<const float*>(g_wsum);
+  a.gv_a = static_cast<T*>(gv_a);
+  a.gv_b = static_cast<T*>(gv_b);
+  return relu ? launch_backward<T, true>(device, a, st) : launch_backward<T, false>(device, a, st);
 }
 
 }  // namespace
@@ -967,10 +1190,10 @@ extern "C" int ide3d_sort_integrate_backward(
   if (err != cudaSuccess) return static_cast<int>(err);
   const auto st = static_cast<cudaStream_t>(stream);
   if (vals_bf16)
-    return dispatch_backward<__nv_bfloat16>(z_a, v_a, s_a, z_b, v_b, s_b, ray_norm, noise,
-                                            n_rays, channels, relu, last_back, white_back,
-                                            g_feat, g_depth, g_wsum, gv_a, gv_b, st);
-  return dispatch_backward<float>(z_a, v_a, s_a, z_b, v_b, s_b, ray_norm, noise, n_rays,
+    return dispatch_backward<__nv_bfloat16>(device, z_a, v_a, s_a, z_b, v_b, s_b, ray_norm,
+                                            noise, n_rays, channels, relu, last_back,
+                                            white_back, g_feat, g_depth, g_wsum, gv_a, gv_b, st);
+  return dispatch_backward<float>(device, z_a, v_a, s_a, z_b, v_b, s_b, ray_norm, noise, n_rays,
                                   channels, relu, last_back, white_back, g_feat, g_depth, g_wsum,
                                   gv_a, gv_b, st);
 }

@@ -18,6 +18,7 @@ import torch
 
 from ide3d_tpu.train import augment as jaug
 from ide3d_tpu_torch.train import augment as taug
+from torch_threads import one_intra_op_thread  # noqa: F401 (a fixture)
 
 F32 = dict(compute_dtype="float32")
 
@@ -152,15 +153,15 @@ def test_draws_follow_the_generator():
     assert all(x.dtype == torch.bfloat16 for x in bf)
 
 
-def test_warp_differentiates_twice():
+def test_warp_differentiates_twice(one_intra_op_thread):
     """The warp and its transpose are each other's gradients, so R1's double
     backward goes through (float64 gradgradcheck on a grid reaching past the
     border); and the first gradient equals grid_sample's own."""
-    x = torch.randn(2, 3, 6, 5, dtype=torch.float64, requires_grad=True)
-    grid = torch.rand(2, 4, 7, 2, generator=torch.Generator().manual_seed(0),
+    x = torch.randn(2, 2, 5, 4, dtype=torch.float64, requires_grad=True)
+    grid = torch.rand(2, 3, 5, 2, generator=torch.Generator().manual_seed(0),
                       dtype=torch.float64) * 2.4 - 1.2
     assert torch.autograd.gradgradcheck(lambda x: taug._Warp.apply(x, grid), (x,))
-    g = torch.randn(2, 3, 4, 7, dtype=torch.float64)
+    g = torch.randn(2, 2, 3, 5, dtype=torch.float64)
     ref = torch.autograd.grad(torch.nn.functional.grid_sample(x, grid, align_corners=False), x, g)[0]
     close(torch.autograd.grad(taug._Warp.apply(x, grid), x, g)[0].numpy(), ref.numpy(), atol=1e-12)
 

@@ -78,27 +78,14 @@ def test_k1_kernel_matches_plain_on_card(shape, opts):
         np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape,opts", [
-    # (Sa, Sb, C+1, vals dtype)
-    ((96, 96, 52, "bfloat16"), dict()),  # the training render's shape
-    ((96, 96, 52, "float32"), dict(noise=True)),
-    ((8, 8, 9, "bfloat16"), dict(clamp_mode="relu")),
-    ((5, 130, 4, "float32"), dict(last_back=True)),
-    ((1, 1, 2, "float32"), dict(white_back=True)),
-    ((200, 56, 256, "float32"), dict(clamp_mode="relu", last_back=True, white_back=True, noise=True)),
-])
-@pytest.mark.parametrize("sorted_halves", [False, True])
-def test_k1_backward_matches_plain_on_card(shape, opts, sorted_halves):
-    """The CUDA backward against autograd through the plain version, depths on
-    a 1/8 grid (ties), densities that keep every alpha below 1 - 1e-6: max abs
-    err <= 1e-4 x max|grad| in fp32, 1e-2 x in bf16 (the gradient is rounded
-    to bf16 once; the plain version rounds the same sums in another order)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    (sa, sb, c1, dtype), opts = shape, dict(opts)
-    rng = np.random.RandomState(sa + 3 * sb + c1)
-    B, R = 2, 40
+def _k1_backward_case(shape, opts, sorted_halves, R=2048):
+    """Inputs of one backward case: depths on a 1/8 grid (ties within and
+    across the halves), densities that keep every alpha below 1 - 1e-6, B=2
+    and R rays per image, so that the persistent blocks walk over several
+    rays each; returns (args, cotangents, options)."""
+    (sa, sb, c1, dtype, misaligned), opts = shape, dict(opts)
+    rng = np.random.RandomState(sa + 3 * sb + c1 + R)
+    B = 2
     args = []
     for s in (sa, sb):
         z = np.round((rng.rand(B, R, s, 1) * 1.05 + 2.25) * 8).astype(np.float32) / 8
@@ -107,19 +94,76 @@ def test_k1_backward_matches_plain_on_card(shape, opts, sorted_halves):
         v = rng.randn(B, R, s, c1).astype(np.float32)
         args += [t(z).cuda(), t(v).to("cuda", getattr(torch, dtype))]
     args.append(t(rng.rand(B, R, 1).astype(np.float32) + 0.5).cuda())
+    if misaligned:
+        args[1] = _misaligned(args[1])
+        assert args[1].data_ptr() % 16 == 4 and args[1].is_contiguous()
     if opts.pop("noise", False):
         opts["noise"] = t(rng.randn(B, R, sa + sb).astype(np.float32) * 0.5).cuda()
     cot = [t(rng.randn(B, R, n).astype(np.float32)).cuda() for n in (c1 - 1, 1, 1)]
-    before = ray_march.sort_integrate_backward.launches
-    got = ray_march.sort_integrate_backward(*args, *cot, **opts)
-    assert ray_march.sort_integrate_backward.launches == before + 1
+    return args, cot, opts
+
+
+def _check_backward(got, args, cot, opts):
+    """max abs err <= 1e-4 x max|grad| in fp32, 1e-2 x in bf16 (the gradient is
+    rounded to bf16 once; the plain version rounds the same sums in another
+    order), against autograd through the plain version."""
     ref = ray_march.sort_integrate_backward_plain(*args, *cot, **opts)
     scale = max(float(r.float().abs().max()) for r in ref)
-    tol = 1e-4 if dtype == "float32" else 1e-2
+    tol = 1e-4 if args[1].dtype == torch.float32 else 1e-2
     for g, r in zip(got, ref):
         assert g.dtype == r.dtype and g.shape == r.shape
         assert torch.isfinite(g.float()).all()
         assert float((g.float() - r.float()).abs().max()) <= tol * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,opts", [
+    # (Sa, Sb, C+1, vals dtype, misaligned vals_a): each launch plan of the backward
+    ((96, 96, 52, "bfloat16", False), dict()),  # the training render's: staged, 2 rows = 13 vectors
+    ((96, 96, 52, "float32", False), dict(noise=True)),  # staged, 1 row = 13 vectors
+    ((8, 8, 9, "bfloat16", False), dict(clamp_mode="relu")),  # staged, 8 rows = 9 vectors
+    ((8, 12, 4, "float32", False), dict(last_back=True)),  # staged, 1 row = 1 vector
+    ((16, 16, 256, "bfloat16", False), dict(white_back=True)),  # staged, 1 row = 32 vectors
+    ((8, 8, 2, "float32", False), dict(noise=True)),  # staged, scalar (8-byte rows)
+    ((5, 130, 4, "float32", False), dict(last_back=True)),  # streamed: a 20-byte half
+    ((1, 1, 2, "float32", False), dict(white_back=True)),  # streamed: 1-sample halves
+    ((200, 56, 256, "float32", False),  # streamed: above 64 KB, in row chunks
+     dict(clamp_mode="relu", last_back=True, white_back=True, noise=True)),
+    ((96, 96, 52, "bfloat16", True), dict(noise=True)),  # streamed: a misaligned pointer
+])
+@pytest.mark.parametrize("sorted_halves", [False, True])
+def test_k1_backward_matches_plain_on_card(shape, opts, sorted_halves):
+    """The CUDA backward against autograd through the plain version, for each
+    launch plan the kernel makes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    args, cot, opts = _k1_backward_case(shape, opts, sorted_halves,
+                                        R=1024 if shape[2] == 256 else 2048)
+    before = ray_march.sort_integrate_backward.launches
+    got = ray_march.sort_integrate_backward(*args, *cot, **opts)
+    assert ray_march.sort_integrate_backward.launches == before + 1
+    _check_backward(got, args, cot, opts)
+
+
+@pytest.mark.cuda
+def test_k1_backward_back_to_back_on_card():
+    """Backward calls queued on one stream with no synchronisation between
+    them, on different inputs and plans (so different shared-memory sizes),
+    each right: no stage, barrier or launch attribute is reused stale."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cases = [_k1_backward_case(shape, opts, sorted_halves, R=R) for shape, opts, sorted_halves, R in (
+        ((96, 96, 52, "bfloat16", False), dict(), True, 4096),
+        ((96, 96, 52, "bfloat16", False), dict(noise=True), False, 4095),
+        ((8, 8, 9, "bfloat16", False), dict(), False, 2048),
+        ((96, 96, 52, "float32", False), dict(last_back=True), False, 2048),
+        ((96, 96, 52, "bfloat16", True), dict(), False, 2048),
+    )]
+    torch.cuda.synchronize()
+    outs = [ray_march.sort_integrate_backward(*args, *cot, **opts) for args, cot, opts in cases]
+    torch.cuda.synchronize()
+    for got, (args, cot, opts) in zip(outs, cases):
+        _check_backward(got, args, cot, opts)
 
 
 @pytest.mark.cuda

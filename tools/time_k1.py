@@ -1,16 +1,25 @@
-"""Times K1 (`sort_integrate`) of one checkout of the port at the frame's shape.
+"""Times K1 (`sort_integrate`), or its backward, of one checkout of the port.
 
-    python3 tools/time_k1.py [--tree DIR]
+    python3 tools/time_k1.py [--tree DIR] [--backward]
 
 Imports `ide3d_tpu_torch` from DIR (default: the checkout this script is in),
 so that two commits' kernels are timed on the same card, one process each:
 unpack the other commit with `git archive <commit> | tar -x -C DIR`.
-It calls only the entry point `sort_integrate(z_a, vals_a, z_b, vals_b,
-ray_norm)`, which every version of the port has, and the kernel is built from
-DIR's own source. At bf16 values, R=4096, S=96+96, C+1=52, for B=1 and B=3,
-with halves sorted (as the deterministic frame has them) and unsorted (a
-render with a generator), it holds the kernel against the plain version
-(max abs err <= 1e-3) and prints, with chip_smoke.py's timers:
+The kernel is built from DIR's own source, and only entry points that every
+version of the port since its backward has are called.
+
+Forward (default): `sort_integrate(z_a, vals_a, z_b, vals_b, ray_norm)` at
+bf16 values, R=4096, S=96+96, C+1=52, for B=1 and B=3, with halves sorted (as
+the deterministic frame has them) and unsorted (a render with a generator),
+held against the plain version (max abs err <= 1e-3).
+
+--backward: `sort_integrate_backward(z_a, vals_a, z_b, vals_b, ray_norm,
+g_feat, g_depth, g_wsum)` at the training render's layout (bf16, B=4,
+R=4096, S=96+96, C+1=52, coarse half sorted, fine half unsorted), held
+against autograd through the plain version (max abs err <= 1e-2 x max|grad|),
+then the forward and the pair forward + backward at the same inputs.
+
+Each case prints, with chip_smoke.py's timers:
   graph_ms  device time per call, from a CUDA graph of 20 calls over two input sets
   eager_ms  time between CUDA events around one eager call (host + kernel)
   host_ms   host time of one eager call until it returns
@@ -38,17 +47,27 @@ def _smoke_helpers():
     return module
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--tree", type=Path, default=ROOT, help="root of the checkout to time")
-    args = ap.parse_args()
-    sys.path.insert(0, str(args.tree.resolve()))
+def _timed(smoke, calls, nbytes: int) -> dict:
+    graph = smoke.graph_ms(calls, 20)
+    eager, host = smoke.eager_ms(calls[0])
+    bound = nbytes / smoke.HBM_BYTES_PER_MS
+    return {"graph_ms": graph, "eager_ms": eager, "host_ms": host, "bytes": nbytes,
+            "bound_ms": bound}
+
+
+def _line(name: str, tree: Path, shape: str, smi: str, r: dict) -> None:
+    share = 100 * r["bound_ms"] / r["graph_ms"]
+    print(f"{name} {tree} {shape} ({smi}): graph {r['graph_ms']:.4f} ms "
+          f"({share:.1f}% of the {r['bound_ms'] * 1e3:.2f} us bound), "
+          f"eager {r['eager_ms']:.4f} ms, host {r['host_ms']:.4f} ms"
+          + (f"; max abs err {r['max_abs_err']:.3g}" if "max_abs_err" in r else ""), flush=True)
+
+
+def time_forward(smoke, tree: Path, smi: str) -> dict:
     from ide3d_tpu_torch.ops.ray_march import sort_integrate, sort_integrate_plain
 
-    smoke = _smoke_helpers()
-    smi = smoke.phase_device().splitlines()[0]
     gen = torch.Generator().manual_seed(1)
-    result = {"tree": str(args.tree), "device": smi}
+    result = {}
     for B in (1, 3):
         for halves in ("sorted", "unsorted"):
             sets = [smoke.k1_inputs(gen, torch.bfloat16, B=B, sorted_halves=halves == "sorted")
@@ -56,18 +75,52 @@ def main() -> None:
             err = smoke.max_err(sort_integrate(*sets[0]), sort_integrate_plain(*sets[0]))
             if err > 1e-3:
                 raise RuntimeError(f"B={B} {halves}: max abs err vs plain {err} > 1e-3")
-            calls = [lambda a=a: sort_integrate(*a) for a in sets]
-            graph = smoke.graph_ms(calls, 20)
-            eager, host = smoke.eager_ms(calls[0])
-            nbytes = smoke.k1_bytes(sets[0])
-            bound = nbytes / smoke.HBM_BYTES_PER_MS
-            result[f"B{B}_{halves}"] = {"graph_ms": graph, "eager_ms": eager, "host_ms": host,
-                                        "bytes": nbytes, "bound_ms": bound, "max_abs_err": err}
-            print(f"K1 {args.tree} B={B} {halves} halves, bf16 R=4096 S=96+96 C=51 ({smi}): "
-                  f"graph {graph:.4f} ms ({100 * bound / graph:.1f}% of the {bound * 1e3:.2f} us "
-                  f"bound), eager {eager:.4f} ms, host {host:.4f} ms; max abs err {err:.3g}",
-                  flush=True)
-            del sets, calls
+            r = _timed(smoke, [lambda a=a: sort_integrate(*a) for a in sets],
+                       smoke.k1_bytes(sets[0]))
+            r["max_abs_err"] = err
+            result[f"B{B}_{halves}"] = r
+            _line("K1", tree, f"B={B} {halves} halves, bf16 R=4096 S=96+96 C=51", smi, r)
+            del sets
+    return result
+
+
+def time_backward(smoke, tree: Path, smi: str) -> dict:
+    from ide3d_tpu_torch.ops.ray_march import (sort_integrate, sort_integrate_backward,
+                                               sort_integrate_backward_plain)
+
+    gen = torch.Generator().manual_seed(7)
+    sets = smoke.training_k1_sets(gen)
+    got = sort_integrate_backward(*sets[0][0], *sets[0][1])
+    err = smoke.rel_err(got, sort_integrate_backward_plain(*sets[0][0], *sets[0][1]))
+    if err > 1e-2:
+        raise RuntimeError(f"backward: max abs err / max|grad| vs plain {err} > 1e-2")
+    shape = "B=4 bf16 R=4096 S=96+96 C=51, coarse sorted, fine unsorted"
+    bwd_bytes = smoke.k1_backward_bytes(*sets[0])
+    fwd_bytes = smoke.k1_bytes(sets[0][0])
+    result = {"backward": _timed(smoke, [lambda s=s: sort_integrate_backward(*s[0], *s[1])
+                                         for s in sets], bwd_bytes)}
+    result["backward"]["max_abs_err"] = err
+    _line("K1 backward", tree, shape, smi, result["backward"])
+    result["forward"] = _timed(smoke, [lambda s=s: sort_integrate(*s[0]) for s in sets], fwd_bytes)
+    _line("K1 forward", tree, shape, smi, result["forward"])
+    result["forward_backward"] = _timed(
+        smoke, [lambda s=s: (sort_integrate(*s[0]), sort_integrate_backward(*s[0], *s[1]))
+                for s in sets], fwd_bytes + bwd_bytes)
+    _line("K1 forward + backward", tree, shape, smi, result["forward_backward"])
+    return result
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", type=Path, default=ROOT, help="root of the checkout to time")
+    ap.add_argument("--backward", action="store_true",
+                    help="time the backward at the training layout (B=4)")
+    args = ap.parse_args()
+    sys.path.insert(0, str(args.tree.resolve()))
+    smoke = _smoke_helpers()
+    smi = smoke.phase_device().splitlines()[0]
+    result = {"tree": str(args.tree), "device": smi}
+    result.update((time_backward if args.backward else time_forward)(smoke, args.tree, smi))
     print(json.dumps(result))
 
 
