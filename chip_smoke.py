@@ -1,5 +1,6 @@
 """Smoke run of the PyTorch port on one CUDA card: build, check and time K1,
-then drive the free-view frame at the flagship width.
+then drive the frame, the Painter, training and offline generation at the
+flagship width.
 
     python3 chip_smoke.py
 
@@ -51,12 +52,23 @@ Phases, one line each; any failure ends the run with a non-zero exit:
                apps.train_gan.main --preset full --batch 4 for 2 steps on an
                8-image 512² dataset, and --resume of its snapshot-final, which
                must restore every state dict, the step and ada_p.
+  8. offline - GeneratorConfig() and the reference-compat slice G written as
+               train_gan snapshots and loaded by load_generator; gen_videos on
+               each (16 frames in 2 chunks, bf16): K1 once a chunk, the first
+               chunk's K1 inputs through kernel and plain (<= 1e-3), frame 0
+               against G.synthesis (within 1 uint8 level); the fp32 ref-compat
+               frame card against CPU (<= 3e-5 x scale); extract_shapes at
+               256^3 against an fp32 copy's grid (<= 3e-2 x max|sigma|) and that
+               copy's first chunk card against CPU (<= 3e-5 x scale);
+               render_mesh 128^3 with an 8-frame orbit: K1 once a frame, one
+               frame's K1 inputs (fp32, 64+64) through kernel and plain (<= 1e-4)
 Then one JSON line with the kernels, and last {"ok": true, "device": {...}}.
 In that line K1's `ms` and `plain_ms` are device times per call at B=3 from
 the CUDA graphs; `eager_ms` is the time between CUDA events around one eager
 call and `host_ms` the host's time in that call, medians at B=3; `b1` holds
 the same at B=1; `launches` counts phase 5's frames, `train_launches` phase
-7's steps. The backward's `ms` is its graph time at B=4, `plain_ms` the plain
+7's steps, `video_launches` and `mesh_launches` phase 8's runs; its
+`max_abs_err` is the largest of phases 3, 5 and 8. The backward's `ms` is its graph time at B=4, `plain_ms` the plain
 backward's event time, `launches` phase 7's steps, `max_abs_err` relative to
 max|grad|.
 """
@@ -270,28 +282,37 @@ def phase_kernel(smi: str) -> dict:
     return {"max_abs_err": max(edge_err, sat_err, *errs.values()), "timing": timing}
 
 
-def phase_fp32() -> None:
-    from ide3d_tpu_torch.models.generator import GeneratorConfig, Ide3dGenerator
+def fp32_card_vs_cpu(cfg, seed: int, label: str) -> dict:
+    """One fp32 frame of Ide3dGenerator(cfg).init(seed) at batch 1, the card
+    (K1) against the CPU (plain paths) on the same weights, TF32 off on both
+    sides: max abs err <= 3e-5 x the output's scale. Returns the errors."""
+    from ide3d_tpu_torch.models.generator import Ide3dGenerator
     from ide3d_tpu_torch.render.camera import CANONICAL_POSE_25
 
-    z = torch.as_tensor(np.random.RandomState(0).randn(1, 512), dtype=torch.float32)
+    z = torch.as_tensor(np.random.RandomState(0).randn(1, cfg.z_dim), dtype=torch.float32)
     c = torch.as_tensor(CANONICAL_POSE_25)[None]
     outs = {}
     for dev in ("cpu", "cuda"):
-        G = Ide3dGenerator(GeneratorConfig(dtype="float32")).init(seed=0).to(dev).eval()
+        G = Ide3dGenerator(cfg).init(seed=seed).to(dev).eval()
         with torch.inference_mode():
             outs[dev] = G(z.to(dev), c.to(dev), return_all=True)
-    # fp32 with TF32 off on both sides: only the order of sums differs.
     err, scale = {}, {}
     for k in ("img", "seg", "depth", "weights_sum"):
         ref = outs["cpu"][k]
         err[k] = float((outs["cuda"][k].cpu() - ref).abs().max())
         scale[k] = max(1.0, float(ref.abs().max()))
-    _check_finite("fp32 frame", [outs["cuda"][k] for k in err])
+    _check_finite(f"{label} fp32 frame", [outs["cuda"][k] for k in err])
     if any(err[k] > 3e-5 * scale[k] for k in err):
-        raise RuntimeError(f"fp32 frame cuda vs cpu: max abs err {err}, output scale {scale}")
+        raise RuntimeError(f"{label} fp32 frame cuda vs cpu: max abs err {err}, output scale {scale}")
+    return {"err": err, "scale": scale}
+
+
+def phase_fp32() -> None:
+    from ide3d_tpu_torch.models.generator import GeneratorConfig
+
+    r = fp32_card_vs_cpu(GeneratorConfig(dtype="float32"), 0, "flagship")
     print(f"fp32: GeneratorConfig(dtype=float32) batch 1, cuda (K1) vs cpu (plain): max abs err "
-          f"{err} at output scale {scale} (limit 3e-5 x scale)", flush=True)
+          f"{r['err']} at output scale {r['scale']} (limit 3e-5 x scale)", flush=True)
 
 
 def phase_frame() -> dict:
@@ -945,6 +966,255 @@ def phase_train(smi: str) -> dict:
     return {"k1_backward": k, "card_vs_cpu": e, "full": t, "app": a}
 
 
+# Phase 8's video: 2 keyframes x 8 frames, rendered 8 frames a chunk (K1 once a chunk).
+VIDEO_ARGS = ("--seeds", "0-1", "--grid", "1x1", "--num-keyframes", "2", "--w-frames", "8",
+              "--chunk", "8", "--device", "cuda")
+VIDEO_FRAMES, VIDEO_CHUNK = 16, 8
+MESH_FRAMES = 8
+
+
+def write_snapshot(path: str, cfg, seed: int) -> None:
+    """Ide3dGenerator(cfg).init(seed) as train_gan writes a snapshot:
+    {"G_ema": state dict} and the config, through io/checkpoint."""
+    from ide3d_tpu_torch.io.checkpoint import save_checkpoint
+    from ide3d_tpu_torch.models.generator import Ide3dGenerator
+
+    save_checkpoint(path, {"G_ema": Ide3dGenerator(cfg).init(seed=seed).state_dict()}, config=cfg,
+                    step=0)
+
+
+def offline_video(snap: str, mode: str, out: str, smi: str, label: str) -> dict:
+    """apps.gen_videos.main on the snapshot, once to warm up and once counted:
+    K1 once a chunk, 16 frames written, frame 0 within 1 uint8 level of
+    G.synthesis on the same w+ and camera (in the chunk's batch, through the
+    CLI's own epilogue); the warm-up's first-chunk K1 inputs, captured at the
+    renderer's call, through kernel and plain (bf16 <= 1e-3, as phase 3)."""
+    import os
+
+    from ide3d_tpu_torch.apps import common, gen_videos
+    from ide3d_tpu_torch.ops import ray_march
+    from ide3d_tpu_torch.render import renderer
+    from ide3d_tpu_torch.render.renderer import RenderParams
+
+    argv = ["--network", snap, *VIDEO_ARGS, "--image-mode", mode, "--output", out]
+    # Warm-up (cuDNN heuristics and the allocator at the chunk's shapes), with
+    # the first chunk's K1 inputs captured; they are checked and freed before
+    # the counted run, so that they do not count in its peak memory.
+    captured = []
+
+    def capture_k1(*args, **kw):
+        if not captured:
+            captured.append((args, kw))
+        return ray_march.sort_integrate(*args, **kw)
+
+    renderer.sort_integrate = capture_k1
+    try:
+        gen_videos.main(argv)
+    finally:
+        renderer.sort_integrate = ray_march.sort_integrate
+    ((args, kw),) = captured
+    if tuple(args[1].shape) != (VIDEO_CHUNK, 4096, 96, 52) or args[1].dtype != torch.bfloat16:
+        raise RuntimeError(f"{label} video: K1 took {args[1].dtype} {tuple(args[1].shape)}")
+    with torch.inference_mode():
+        got, ref = ray_march.sort_integrate(*args, **kw), ray_march.sort_integrate_plain(*args, **kw)
+    torch.cuda.synchronize()
+    _check_finite(f"{label} video K1", got)
+    k1_err = max_err(got, ref)
+    del got, ref, args, kw, captured
+    if k1_err > 1e-3:
+        raise RuntimeError(f"{label} video: K1 vs plain at bf16 ({VIDEO_CHUNK}, 4096, 96+96, 52) "
+                           f"max abs err {k1_err} > 1e-3")
+
+    written, real = [], common.write_video
+
+    def capture(path, frames, fps=24):
+        written.append(frames)
+        return real(path, frames, fps)
+
+    common.write_video = capture
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ray_march.sort_integrate.launches = 0
+        res = gen_videos.main(argv)
+        launches = ray_march.sort_integrate.launches
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        common.write_video = real
+    (frames,) = written
+    if launches != VIDEO_FRAMES // VIDEO_CHUNK:
+        raise RuntimeError(f"{label} video: K1 launched {launches} times for "
+                           f"{VIDEO_FRAMES // VIDEO_CHUNK} chunks")
+    G = common.load_generator(snap, "cuda")
+    R = G.cfg.img_resolution
+    width = R if mode == "image" else 2 * R
+    if len(frames) != VIDEO_FRAMES or any(f.shape != (R, width, 3) or f.dtype != np.uint8
+                                          for f in frames):
+        raise RuntimeError(f"{label} video: {len(frames)} frames of {frames[0].shape}")
+    if not os.path.getsize(res["path"]) > 0:
+        raise RuntimeError(f"{label} video: {res['path']} is empty")
+
+    work_ws, work_cs = gen_videos.video_work(G, [0, 1], 1, 1, 2, 8, 1.0, 14, "cuda")
+    rp = RenderParams(img_size=G.cfg.render_size, num_steps=96, hierarchical=True)
+    with torch.inference_mode():
+        o = G.synthesis(torch.as_tensor(work_ws[:VIDEO_CHUNK], device="cuda"),
+                        torch.as_tensor(work_cs[:VIDEO_CHUNK], device="cuda"),
+                        render_params=rp, return_all=True)
+        _check_finite(f"{label} video frames", [o["img"], o["seg"], o["depth"]])
+        img8, ex8 = gen_videos.post(o, mode, R)
+    ref0 = img8[0] if ex8 is None else torch.cat([img8[0], ex8[0]], dim=1)
+    err = int(np.abs(frames[0].astype(np.int32) - ref0.cpu().numpy().astype(np.int32)).max())
+    if err > 1:
+        raise RuntimeError(f"{label} video: frame 0 vs G.synthesis differs by {err} uint8 levels")
+    ms = res["ms_per_frame"]
+    print(f"offline: gen_videos {label} ({G.cfg.dtype}, num_ws {G.num_ws}, --image-mode {mode}), "
+          f"{VIDEO_FRAMES} frames in chunks of {VIDEO_CHUNK}: {ms:.3f} ms a frame (CUDA events "
+          f"around the chunk loop, host pull included), {1e3 / ms:.2f} frames/s, peak "
+          f"{peak_gib:.3f} GiB, K1 launches {launches}; frame 0 vs G.synthesis max "
+          f"{err} uint8 levels; K1 vs plain on the first chunk's inputs, bf16 ({VIDEO_CHUNK}, "
+          f"4096, 96+96, 52), max abs err {k1_err:.3g}; wrote {os.path.basename(res['path'])} "
+          f"({smi})", flush=True)
+    return {"launches": launches, "ms_per_frame": ms, "fps": 1e3 / ms, "peak_gib": peak_gib,
+            "frame0_err": err, "k1_err": k1_err}
+
+
+def fp32_copy(G, device: str):
+    """G's weights under its config with dtype float32, on `device`."""
+    from dataclasses import replace
+
+    from ide3d_tpu_torch.models.generator import Ide3dGenerator
+
+    G32 = Ide3dGenerator(replace(G.cfg, dtype="float32"))
+    G32.load_state_dict(G.state_dict())
+    return G32.to(device).eval()
+
+
+def offline_shapes(snap: str, outdir: str, smi: str) -> dict:
+    """apps.extract_shapes.main at 256^3 for seed 0 on the snapshot (timed),
+    held against the same grid from an fp32 copy of its weights on the card
+    (<= 3e-2 x max|sigma|: the bf16 vb stack against fp32); the fp32 copy's
+    first 2^18-point chunk is held against the same chunk on the CPU
+    (<= 3e-5 x scale)."""
+    import os
+
+    from ide3d_tpu_torch.apps import common, extract_shapes as es
+
+    N, M = 256, 2**18
+    secs = es.main(["--network", snap, "--seeds", "0", "--voxel-resolution", str(N),
+                    "--outdir", outdir, "--device", "cuda"])["seconds_per_seed"][0]
+    sig = np.load(os.path.join(outdir, "0.npy")).reshape(-1)
+    if sig.size != N**3 or not np.isfinite(sig).all():
+        raise RuntimeError(f"extract_shapes: sigma grid of {sig.size} points, finite "
+                           f"{np.isfinite(sig).all()}")
+    samples = 0.9 * es.create_samples(N, 0.3)
+    G = common.load_generator(snap, "cpu")
+    grids = {}
+    for dev, pts in (("cuda", samples), ("cpu", samples[:M])):
+        G32 = fp32_copy(G, dev)
+        table = es.fp32_table(G32, es.seed_ws(G32, 0, 1.0, dev))
+        grids[dev] = es.sigma_grid(G32.synthesis.renderer, table, pts, M).cpu().numpy()
+        del G32, table
+    _check_finite("extract_shapes fp32 sigma", [torch.as_tensor(g) for g in grids.values()])
+    chunk_err = float(np.abs(grids["cuda"][:M] - grids["cpu"]).max())
+    chunk_scale = max(1.0, float(np.abs(grids["cpu"]).max()))
+    if chunk_err > 3e-5 * chunk_scale:
+        raise RuntimeError(f"extract_shapes: fp32 sigma card vs cpu max abs err {chunk_err}, "
+                           f"scale {chunk_scale}")
+    bf16_err = float(np.abs(sig - grids["cuda"]).max())
+    scale = max(1.0, float(np.abs(grids["cuda"]).max()))
+    if bf16_err > 3e-2 * scale:
+        raise RuntimeError(f"extract_shapes: bf16 sigma grid vs fp32 max abs err {bf16_err}, "
+                           f"scale {scale}")
+    print(f"offline: extract_shapes 256^3 sigma of seed 0 (chunks of 2^18 points from the fp32 "
+          f"plane table, the snapshot's bf16 vb stack): {secs:.3f} s a seed; range "
+          f"[{sig.min():.3f}, {sig.max():.3f}]; the whole grid vs an fp32 copy's on the card max "
+          f"abs err {bf16_err:.3g} at scale {scale:.3g} (limit 3e-2 x scale); the fp32 copy's "
+          f"first 2^18-point chunk, card vs cpu, max abs err {chunk_err:.3g} at scale "
+          f"{chunk_scale:.3g} (limit 3e-5 x scale) ({smi})", flush=True)
+    return {"s_per_seed": secs, "sigma_err": chunk_err, "bf16_sigma_err": bf16_err}
+
+
+def offline_mesh(snap: str, outdir: str, smi: str) -> dict:
+    """apps.render_mesh.main at 128^3 with an 8-frame orbit: K1 once a frame
+    at S=64+64 (fp32 planes); one frame's K1 inputs through kernel and plain."""
+    import os
+
+    from ide3d_tpu_torch.apps import render_mesh
+    from ide3d_tpu_torch.ops import ray_march
+    from ide3d_tpu_torch.render import renderer
+
+    captured = []
+
+    def capture(*args, **kw):
+        if not captured:
+            captured.append((args, kw))
+        return ray_march.sort_integrate(*args, **kw)
+
+    video = os.path.join(outdir, "orbit.mp4")
+    renderer.sort_integrate = capture
+    try:
+        ray_march.sort_integrate.launches = 0
+        res = render_mesh.main(["--network", snap, "--voxel-resolution", "128", "--video", video,
+                                "--frames", str(MESH_FRAMES), "--outdir", outdir, "--device", "cuda"])
+        launches = ray_march.sort_integrate.launches
+    finally:
+        renderer.sort_integrate = ray_march.sort_integrate
+    if launches != MESH_FRAMES:
+        raise RuntimeError(f"render_mesh: K1 launched {launches} times for {MESH_FRAMES} frames")
+    for name in ("0.obj", "0.ply"):
+        if not os.path.getsize(os.path.join(outdir, name)) > 0:
+            raise RuntimeError(f"render_mesh: {name} is empty")
+    if not res["faces"] > 0 or not os.path.getsize(res["video"]) > 0:
+        raise RuntimeError(f"render_mesh: {res['faces']} faces, video {res['video']}")
+    ((args, kw),) = captured
+    if tuple(args[1].shape) != (1, 4096, 64, 52) or tuple(args[3].shape) != (1, 4096, 64, 52) \
+            or args[1].dtype != torch.float32:
+        raise RuntimeError(f"render_mesh: K1 took {args[1].dtype} {tuple(args[1].shape)} + "
+                           f"{tuple(args[3].shape)}")
+    with torch.inference_mode():
+        got, ref = ray_march.sort_integrate(*args, **kw), ray_march.sort_integrate_plain(*args, **kw)
+    torch.cuda.synchronize()
+    _check_finite("render_mesh K1", got)
+    err = max_err(got, ref)
+    if err > 1e-4:
+        raise RuntimeError(f"render_mesh: K1 vs plain at S=64+64 fp32 max abs err {err} > 1e-4")
+    ms = res["ms_per_frame"]
+    print(f"offline: render_mesh 128^3, iso level {res['level']:.3f}, {res['verts']} verts, "
+          f"{res['faces']} faces; {MESH_FRAMES}-frame orbit of shaded depth at 64+64 samples: "
+          f"{ms:.3f} ms a frame (host clock, shading and depth pull included), K1 launches "
+          f"{launches}, K1 vs plain at fp32 (1, 4096, 64+64, 52) max abs err {err:.3g} ({smi})",
+          flush=True)
+    return {"launches": launches, "ms_per_frame": ms, "k1_err": err}
+
+
+def phase_offline(smi: str) -> dict:
+    import os
+    import tempfile
+
+    from ide3d_tpu_torch.models.generator import GeneratorConfig
+
+    with tempfile.TemporaryDirectory() as root:
+        flagship, refc = os.path.join(root, "flagship"), os.path.join(root, "ref_compat")
+        t0 = time.perf_counter()
+        write_snapshot(flagship, GeneratorConfig(), seed=0)
+        write_snapshot(refc, GeneratorConfig(vb_ref_compat=True, raw_head="slice"), seed=1)
+        snap_s = time.perf_counter() - t0
+        v_flag = offline_video(flagship, "image_seg", os.path.join(root, "flagship.mp4"), smi,
+                               "flagship snapshot")
+        v_refc = offline_video(refc, "image_depth", os.path.join(root, "ref_compat.mp4"), smi,
+                               "reference-compat")
+        fp32 = fp32_card_vs_cpu(GeneratorConfig(vb_ref_compat=True, raw_head="slice",
+                                                dtype="float32"), 1, "reference-compat")
+        print(f"offline: GeneratorConfig(vb_ref_compat=True, raw_head=slice, dtype=float32) batch "
+              f"1, cuda (K1) vs cpu (plain): max abs err {fp32['err']} at output scale "
+              f"{fp32['scale']} (limit 3e-5 x scale); two snapshots written in {snap_s:.1f} s "
+              f"({smi})", flush=True)
+        shapes = offline_shapes(flagship, os.path.join(root, "shapes"), smi)
+        mesh = offline_mesh(flagship, os.path.join(root, "mesh"), smi)
+    return {"video": {"flagship": v_flag, "ref_compat": v_refc}, "fp32": fp32, "shapes": shapes,
+            "mesh": mesh}
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
@@ -954,6 +1224,7 @@ def main() -> None:
     p = phase_painter(G, smi.splitlines()[0])
     del G
     tr = phase_train(smi.splitlines()[0])
+    off = phase_offline(smi.splitlines()[0])
     main_path, b1 = k["timing"][3], k["timing"][1]  # the frame runs K1 at B=3
     kb = tr["k1_backward"]
     print(json.dumps({"kernels": [{
@@ -962,7 +1233,8 @@ def main() -> None:
         "source": "ide3d_tpu_torch/csrc/ray_march.cu",
         "replaces": "ide3d_tpu/ops/pallas/ray_march.py:121",
         "launches": f["launches"],
-        "max_abs_err": max(k["max_abs_err"], f["frame_err"]),
+        "max_abs_err": max(k["max_abs_err"], f["frame_err"], off["mesh"]["k1_err"],
+                           *(v["k1_err"] for v in off["video"].values())),
         "ms": main_path["ms"],
         "plain_ms": main_path["plain_ms"],
         "eager_ms": main_path["eager_ms"],
@@ -977,6 +1249,10 @@ def main() -> None:
         "painter_launches": {"per_request": p["launches"], "per_round": p["per_round"]},
         "train_launches": sum(n[0] for n in tr["full"]["launches"]),
         "train_b4": {"ms": kb["fwd_ms_b4"], "bound_ms": kb["fwd_bound_ms_b4"]},
+        "video_launches": {k: v["launches"] for k, v in off["video"].items()},
+        "video_max_abs_err": {k: v["k1_err"] for k, v in off["video"].items()},
+        "mesh_launches": off["mesh"]["launches"],
+        "mesh_max_abs_err": off["mesh"]["k1_err"],
     }, {
         "name": "sort_integrate_backward",
         "route": "cuda",

@@ -13,8 +13,11 @@ module layout and names so that each module's counterpart is easy to find:
   parallel/ stats (StatsAccumulator)
   data/    dataset (image + seg + camera label folders, infinite_loader)
   io/      from_jax: the JAX parameter tree -> this package's modules;
-           checkpoint: torch-native train-state snapshots
-  apps/    gen_images, painter, web_ui, train_gan
+           checkpoint: torch-native train-state snapshots; torch_import:
+           reference .pkl checkpoints -> this package's G, D and E
+  utils/   seg (the 19-class palette), marching (marching tetrahedra)
+  apps/    gen_images, painter, web_ui, train_gan, gen_videos,
+           extract_shapes, render_mesh, avg_spectra
   csrc/    CUDA C++ sources, compiled with nvcc at first use (see _build.py)
 
 Inside the conv stacks activations are NCHW and conv weights OIHW; the public

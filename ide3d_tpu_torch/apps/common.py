@@ -101,14 +101,33 @@ def write_video(path: str, frames, fps: int = 24) -> str:
 
 
 def load_generator(network: str, device: torch.device | str = "cuda") -> Ide3dGenerator:
-    """Build a generator with random weights from a `random:<seed>[:tiny|small]`
-    spec on `device` (the CPU only when asked). Loading a checkpoint is not
-    ported yet."""
-    if not network.startswith("random"):
-        raise NotImplementedError("the port loads no checkpoints yet; use random:<seed>[:tiny|small]")
-    parts = network.split(":")
-    seed = int(parts[1]) if len(parts) > 1 and parts[1] else 0
-    preset = parts[2] if len(parts) > 2 else "full"
-    if preset not in PRESETS:
-        raise ValueError(f"unknown preset {preset!r}; choose from {sorted(PRESETS)}")
-    return Ide3dGenerator(PRESETS[preset]).init(seed).to(device).eval()
+    """The generator of `network` on `device` (the CPU only when asked), in eval mode:
+      * `random:<seed>[:full|small|tiny]`: random weights from `init(seed)`;
+      * a snapshot directory as io/checkpoint.save_checkpoint and train_gan
+        write it (state.pt + meta.json): G_ema when the state holds it, else
+        the state itself as G's state dict, under the GeneratorConfig of
+        meta.json (the flagship's when it has none).
+    A reference .pkl loads through ide3d_tpu_torch.io.load_network_pkl."""
+    if network.startswith("random"):
+        parts = network.split(":")
+        seed = int(parts[1]) if len(parts) > 1 and parts[1] else 0
+        preset = parts[2] if len(parts) > 2 else "full"
+        if preset not in PRESETS:
+            raise ValueError(f"unknown preset {preset!r}; choose from {sorted(PRESETS)}")
+        return Ide3dGenerator(PRESETS[preset]).init(seed).to(device).eval()
+
+    import os
+
+    from ..io.checkpoint import config_from_jsonable, load_checkpoint
+
+    if not os.path.isdir(network):
+        raise FileNotFoundError(
+            f"{network!r} is not a snapshot directory (state.pt + meta.json) or random:<seed>; "
+            "a reference .pkl loads through ide3d_tpu_torch.io.load_network_pkl")
+    state, meta = load_checkpoint(network)
+    cfg = config_from_jsonable(meta.get("config") or {})
+    if not isinstance(cfg, GeneratorConfig):
+        cfg = GeneratorConfig()
+    G = Ide3dGenerator(cfg)
+    G.load_state_dict(state["G_ema"] if "G_ema" in state else state)
+    return G.to(device).eval()

@@ -375,12 +375,11 @@ class PainterWebApp:
 
 def build_session(network: str = "random:0", encoder: str = None, tiny: bool = False,
                   device="cuda"):
-    """A PainterSession on `device` (the CPU only when asked) with random
-    weights: G from `network` (`random:<seed>[:preset]`), or the 64^2 smoke-test
-    G with `tiny`, and a HybridEncoder at G's width from seed 1, in G's dtype."""
-    if encoder:
-        raise NotImplementedError("the port loads no encoder checkpoints yet")
-
+    """A PainterSession on `device` (the CPU only when asked): G from `network`
+    (`random:<seed>[:preset]` or a snapshot directory, apps.common.load_generator),
+    or the 64^2 smoke-test G with `tiny`; a HybridEncoder at G's width in G's
+    dtype, with the weights of the checkpoint directory `encoder` (its "E"
+    state dict, or the state itself) or else from seed 1."""
     from ..models.encoder import HybridEncoder
     from ..models.generator import GeneratorConfig, Ide3dGenerator
     from ..render.renderer import RenderParams
@@ -402,14 +401,21 @@ def build_session(network: str = "random:0", encoder: str = None, tiny: bool = F
         size=G.cfg.img_resolution, n_latents_app=G.num_ws - n_geo,
         n_latents_geo=n_geo, w_dim=G.cfg.w_dim, input_seg_dim=G.cfg.seg_channels,
         dtype=G.cfg.dtype,  # the interactive path runs E in G's dtype (bf16 on the card)
-    ).init(1).to(device).eval()
-    return PainterSession(G=G, E=E, device=device)
+    )
+    if encoder:
+        from ..io.checkpoint import load_checkpoint
+
+        state, _ = load_checkpoint(encoder)
+        E.load_state_dict(state["E"] if "E" in state else state)
+    else:
+        E.init(1)
+    return PainterSession(G=G, E=E.to(device).eval(), device=device)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--network", default="random:0")
-    ap.add_argument("--encoder", default=None, help="encoder checkpoint (not ported yet)")
+    ap.add_argument("--encoder", default=None, help="encoder checkpoint directory (io/checkpoint)")
     ap.add_argument("--port", type=int, default=8512)
     ap.add_argument("--tiny", action="store_true",
                     help="64^2 smoke-test generator (CPU-friendly)")

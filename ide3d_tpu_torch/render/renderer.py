@@ -92,7 +92,8 @@ class TriplaneRenderer(nn.Module):
         table = torch.cat([img_v.reshape(B, H, W, 3, fc), seg_v.reshape(B, H, W, 3, sc)], dim=-1)
         return table.reshape(B, H, W, 3 * (fc + sc))
 
-    def _sample_52(self, table: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    def sample_table(self, table: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+        """sample_voxel from a table made once (build_table), in its dtype."""
         fc = self.feature_channels
         sampled = sample_from_triplane(coords, table)
         feat, seg = sampled[..., :fc], sampled[..., fc:]
@@ -101,7 +102,7 @@ class TriplaneRenderer(nn.Module):
 
     def sample_voxel(self, img_v: torch.Tensor, seg_v: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
         """coords [B,N,3] world -> [B,N,52], layout [feat(32) | seg(19) | sigma(1)]."""
-        return self._sample_52(self.build_table(img_v, seg_v), coords)
+        return self.sample_table(self.build_table(img_v, seg_v), coords)
 
     # ----------------------------------------------------------------- rendering
 
@@ -132,7 +133,7 @@ class TriplaneRenderer(nn.Module):
 
         if table is None:
             table = self.build_table(img_v, seg_v)
-        coarse = self._sample_52(table, pts.reshape(B, Rr * S, 3)).reshape(B, Rr, S, self.out_channels)
+        coarse = self.sample_table(table, pts.reshape(B, Rr * S, 3)).reshape(B, Rr, S, self.out_channels)
         st = {"table": table, "coarse": coarse, "z_vals": z_vals, "rays_d_cam": rays_d_cam,
               "dirs": dirs, "origins": origins, "generator": generator}
         if rp.hierarchical:
@@ -160,7 +161,7 @@ class TriplaneRenderer(nn.Module):
             fine_z = st["fine_z"]
             F_ = fine_z.shape[2]
             fine_pts = st["origins"][:, :, None, :] + st["dirs"][:, :, None, :] * fine_z
-            fine = self._sample_52(st["table"], fine_pts.reshape(B, Rr * F_, 3))
+            fine = self.sample_table(st["table"], fine_pts.reshape(B, Rr * F_, 3))
             fine = fine.reshape(B, Rr, F_, self.out_channels)
             noise = None
             if gen is not None and rp.nerf_noise > 0:

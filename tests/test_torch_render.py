@@ -342,7 +342,7 @@ def test_render_fine_noise_is_the_draw_of_integrate_rays_merged(renderer_pair):
     got = tr.render_fine(st, rp)
     gen.set_state(state)
     comp, depth, w = tint.integrate_rays_merged(
-        torch.cat([st["coarse"], tr._sample_52(st["table"], (
+        torch.cat([st["coarse"], tr.sample_table(st["table"], (
             st["origins"][:, :, None, :] + st["dirs"][:, :, None, :] * st["fine_z"]
         ).reshape(2, -1, 3)).reshape(2, 64, 10, -1)], dim=-2),
         st["rays_d_cam"], torch.cat([st["z_vals"], st["fine_z"]], dim=-2), generator=gen,

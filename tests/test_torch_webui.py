@@ -164,8 +164,7 @@ class _Stop(Exception):
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
-    """build_session and main run on cuda unless passed cpu; an encoder
-    checkpoint is not loadable yet."""
+    """build_session and main run on cuda unless passed cpu."""
     seen = []
 
     def fake_build(network, encoder=None, tiny=False, device="cuda"):
@@ -189,5 +188,28 @@ def test_entry_points_default_to_the_card(monkeypatch):
     with pytest.raises(_Stop):
         web_ui.build_session("random:0")
     assert seen.pop() == "cuda"
-    with pytest.raises(NotImplementedError):
-        web_ui.build_session("random:0", encoder="e.pkl", device="cpu")
+
+
+def test_build_session_loads_an_encoder_checkpoint(app, tmp_path):
+    """--encoder: the E state dict of a checkpoint written by
+    io/checkpoint.save_checkpoint gives the session's encoder the weights of
+    HybridEncoder.init(1) with that state loaded, output for output."""
+    from ide3d_tpu_torch.io.checkpoint import save_checkpoint
+    from ide3d_tpu_torch.models.encoder import HybridEncoder
+
+    E0 = app.session.E  # from seed 1
+    trained = HybridEncoder(size=R, n_latents_app=E0.n_latents_app, n_latents_geo=E0.n_latents_geo,
+                            dtype="float32").init(7)
+    save_checkpoint(str(tmp_path / "enc"), {"E": trained.state_dict()}, step=1)
+    sess = web_ui.build_session("random:0", encoder=str(tmp_path / "enc"), tiny=True, device="cpu")
+    want = HybridEncoder(size=R, n_latents_app=E0.n_latents_app, n_latents_geo=E0.n_latents_geo,
+                         dtype="float32").init(1)
+    want.load_state_dict(torch.load(tmp_path / "enc" / "state.pt", weights_only=True)["E"])
+    rng = np.random.RandomState(0)
+    img = torch.from_numpy(rng.uniform(-1, 1, (1, R, R, 3)).astype(np.float32))
+    seg = torch.from_numpy(rng.uniform(-1, 1, (1, R, R, 19)).astype(np.float32))
+    with torch.no_grad():
+        got, ref, base = sess.E(img, seg), want.eval()(img, seg), E0(img, seg)
+    assert torch.isfinite(got).all() and got.shape == (1, E0.n_latents_geo + E0.n_latents_app, 512)
+    assert torch.equal(got, ref)
+    assert not torch.allclose(got, base)  # not the seed-1 encoder
