@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one CUDA card: build, check and time K1,
-then drive the frame, the Painter, training and offline generation at the
-flagship width.
+then drive the frame, the Painter, training, offline generation and the
+metric suite at the flagship width.
 
     python3 chip_smoke.py
 
@@ -62,13 +62,29 @@ Phases, one line each; any failure ends the run with a non-zero exit:
                copy's first chunk card against CPU (<= 3e-5 x scale);
                render_mesh 128^3 with an 8-frame orbit: K1 once a frame, one
                frame's K1 inputs (fp32, 64+64) through kernel and plain (<= 1e-4)
+  9. metrics - the flagship snapshot and 64 labelled 512² images: apps.calc_metrics
+               at --batch 8: fid,kid,pr,is (inception, deterministic init) at
+               --num-items 256, ppl2_wend (vgg16) at 64, eqt,eqr at 8. Each
+               metric finite, its exact K1 launches (one a G pass), total
+               time, the generator extraction's images/s, peak memory; K1's
+               inputs at B=8 and at B=1 with a pixel offset through kernel and
+               plain (<= 1e-3); the calc_metrics runs at cuDNN TF32 on, as
+               PyTorch's default; an fp32 copy of G, card against CPU, on the
+               first batch: Inception features (<= 1e-5 x max|feature| with
+               TF32 off, <= 5e-3 with cuDNN TF32 on), and on a pair of
+               deterministic PPL renders VGG16 features (<= 2e-5 x
+               max|feature|) and pair distances (<= 2e-2 relative); PPL's
+               random renders' distances and the bf16 G's are printed.
+               Phase 7's train_gan run also takes --metrics fid
+               (inception, 16 items) and must write a finite FID line.
 Then one JSON line with the kernels, and last {"ok": true, "device": {...}}.
 In that line K1's `ms` and `plain_ms` are device times per call at B=3 from
 the CUDA graphs; `eager_ms` is the time between CUDA events around one eager
 call and `host_ms` the host's time in that call, medians at B=3; `b1` holds
 the same at B=1; `launches` counts phase 5's frames, `train_launches` phase
-7's steps, `video_launches` and `mesh_launches` phase 8's runs; its
-`max_abs_err` is the largest of phases 3, 5 and 8. The backward's `ms` is its graph time at B=4, `plain_ms` the plain
+7's steps, `video_launches` and `mesh_launches` phase 8's runs,
+`metrics_launches` phase 9's per metric; its `max_abs_err` is the largest of
+phases 3, 5, 8 and 9 (`metrics_max_abs_err` phase 9's). The backward's `ms` is its graph time at B=4, `plain_ms` the plain
 backward's event time, `launches` phase 7's steps, `max_abs_err` relative to
 max|grad|.
 """
@@ -933,11 +949,17 @@ def train_entry_point() -> dict:
         common = ["--data", imgs, "--seg", segs, "--preset", "full", "--batch", "4",
                   "--kimg", "0.008", "--fixed-ada-p", str(TRAIN_ADA_P), "--device", "cuda"]
         t0 = time.perf_counter()
-        first = train_gan.main(common + ["--outdir", os.path.join(root, "run")])
+        first = train_gan.main(common + ["--outdir", os.path.join(root, "run"), "--metrics", "fid",
+                                         "--metric-items", "16", "--metric-detector", "inception"])
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         snap = os.path.join(root, "run", "snapshot-final")
         files = sorted(os.listdir(os.path.join(root, "run")))
+        with open(os.path.join(root, "run", "metric-fid.jsonl")) as fh:
+            fid_lines = [json.loads(ln) for ln in fh.read().splitlines()]
+        if len(fid_lines) != 1 or fid_lines[0]["kimg"] != 0.008 \
+                or not np.isfinite(fid_lines[0]["results"]["fid"]):
+            raise RuntimeError(f"train_gan --metrics fid: metric-fid.jsonl holds {fid_lines}")
         saved, meta = load_checkpoint(snap)
         if first.step != 2 or meta["step"] != 2 or meta["ada_p"] != TRAIN_ADA_P:
             raise RuntimeError(f"train_gan: step {first.step}, meta {meta.get('step')}, "
@@ -951,8 +973,10 @@ def train_entry_point() -> dict:
         _same_state(saved["pl_mean"], resumed.pl_mean, "pl_mean")
         if resumed.step != 2:
             raise RuntimeError(f"train_gan --resume: step {resumed.step}, want 2")
-    print(f"train: apps.train_gan.main --preset full --batch 4 --kimg 0.008 on 8 images: 2 steps "
-          f"in {run_s:.1f} s (G and D init, grid and snapshot included), wrote {files}; --resume "
+    print(f"train: apps.train_gan.main --preset full --batch 4 --kimg 0.008 --metrics fid "
+          f"--metric-items 16 --metric-detector inception on 8 images: 2 steps in {run_s:.1f} s "
+          f"(G and D init, grid, snapshot and the FID included), FID {fid_lines[0]['results']['fid']:.6g} "
+          f"at kimg {fid_lines[0]['kimg']} in {fid_lines[0]['total_time']:.3f} s, wrote {files}; --resume "
           f"of snapshot-final restored G, D, G_ema, opt_g, opt_d, pl_mean, step 2, ada_p "
           f"{meta['ada_p']}", flush=True)
     return {"run_s": run_s}
@@ -1215,6 +1239,246 @@ def phase_offline(smi: str) -> dict:
             "mesh": mesh}
 
 
+# Phase 9's runs of apps.calc_metrics: (metrics, detector, --num-items, K1 launches).
+# Every G pass launches K1 once: FID/KID/PR/IS each extract num_items images at
+# batch 8, PPL renders a pair per item (batch 8), EQ-T and EQ-R two batch-1
+# renders per item.
+METRIC_RUNS = (
+    ("fid,kid,pr,is", "inception", 256, {"fid": 32, "kid": 32, "pr": 32, "is": 32}),
+    ("ppl2_wend", "vgg16", 64, {"ppl2_wend": 16}),
+    ("eqt,eqr", "pixel", 8, {"eqt": 16, "eqr": 16}),
+)
+METRIC_BATCH = 8
+METRIC_IMAGES = 64  # the labelled 512² dataset's size
+
+
+def metrics_counted(snap: str, imgs: str, root: str, smi: str) -> dict:
+    """apps.calc_metrics.main on the snapshot at --batch 8, once per METRIC_RUNS
+    entry, with per metric: its record, K1 launches, wall time, the generator
+    extraction's images/s, peak memory. K1's inputs of the first B=8 call and
+    of the second B=1 call (EQ-T renders rp0, then rp1 with the pixel offset)
+    are kept and held against the plain version (bf16 <= 1e-3, as phase 3)."""
+    import os
+
+    import ide3d_tpu_torch.metrics as M
+    from ide3d_tpu_torch.apps import calc_metrics
+    from ide3d_tpu_torch.metrics import frechet_inception_distance, inception_score, \
+        kernel_inception_distance, precision_recall
+    from ide3d_tpu_torch.ops import ray_march
+    from ide3d_tpu_torch.render import renderer
+
+    kept, calls = {}, {}
+
+    def capture(*args, **kw):
+        B = args[1].shape[0]
+        calls[B] = calls.get(B, 0) + 1
+        if (B, calls[B]) in ((METRIC_BATCH, 1), (1, 2)):
+            kept[B] = (args, kw)
+        return ray_march.sort_integrate(*args, **kw)
+
+    per, gen_s = {}, []
+    real_calc = M.calc_metric
+
+    def counted_calc(name, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        gen_s.clear()
+        ray_march.sort_integrate.launches = 0
+        rec = real_calc(name, **kw)
+        torch.cuda.synchronize()
+        per[name] = {"rec": rec, "launches": ray_march.sort_integrate.launches,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                     "gen_s": sum(gen_s)}
+        return rec
+
+    gen_mods = (frechet_inception_distance, kernel_inception_distance, precision_recall,
+                inception_score)
+    real_gen = M.metric_utils.compute_feature_stats_for_generator
+
+    def timed_gen(*args, **kw):
+        t0 = time.perf_counter()
+        st = real_gen(*args, **kw)  # its loop reads each batch's features to the host
+        gen_s.append(time.perf_counter() - t0)
+        return st
+
+    renderer.sort_integrate = capture
+    M.calc_metric = counted_calc
+    for m in gen_mods:
+        m.compute_feature_stats_for_generator = timed_gen
+    try:
+        # PyTorch's default precision, as a calc_metrics process runs: cuDNN TF32
+        # on (phase 1 turns it off for the rest of the script).
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+            for metrics, det, n, _ in METRIC_RUNS:
+                calc_metrics.main(["--network", snap, "--data", imgs, "--metrics", metrics,
+                                   "--detector", det, "--num-items", str(n), "--batch",
+                                   str(METRIC_BATCH), "--device", "cuda",
+                                   "--cache-dir", os.path.join(root, "cache"),
+                                   "--run-dir", os.path.join(root, "metrics")])
+    finally:
+        renderer.sort_integrate = ray_march.sort_integrate
+        M.calc_metric = real_calc
+        for m in gen_mods:
+            m.compute_feature_stats_for_generator = real_gen
+
+    for metrics, det, n, launches in METRIC_RUNS:
+        for name, want in launches.items():
+            got = per[name]
+            vals = got["rec"]["results"]
+            if not all(np.isfinite(v) for v in vals.values()):
+                raise RuntimeError(f"metrics: {name} gave {vals}")
+            if got["launches"] != want:
+                raise RuntimeError(f"metrics: {name} launched K1 {got['launches']} times, want {want}")
+            images = {"ppl2_wend": 2 * n, "eqt": 2 * n, "eqr": 2 * n}.get(name, n)
+            secs = got["gen_s"] or got["rec"]["total_time"]
+            got["imgs_per_s"] = images / secs
+            print(f"metrics: {name} = {json.dumps(vals)} (detector {det}, "
+                  f"{got['rec']['detector']['source']}; --num-items {n}, batch {METRIC_BATCH}, "
+                  f"flagship bf16 G at 512²): total_time {got['rec']['total_time']:.3f} s; "
+                  f"{images} G images at {got['imgs_per_s']:.2f} images/s "
+                  f"({'generator extraction, G + detector' if got['gen_s'] else 'the whole metric'}"
+                  f", host clock); K1 launches {got['launches']}; peak {got['peak_gib']:.3f} GiB "
+                  f"({smi})", flush=True)
+
+    errs = {}
+    for B, label in ((METRIC_BATCH, "B=8"), (1, "B=1 with pixel_offset")):
+        args, kw = kept[B]
+        if tuple(args[1].shape) != (B, 4096, 96, 52) or args[1].dtype != torch.bfloat16:
+            raise RuntimeError(f"metrics: K1 took {args[1].dtype} {tuple(args[1].shape)}")
+        with torch.inference_mode():
+            got, ref = ray_march.sort_integrate(*args, **kw), ray_march.sort_integrate_plain(*args, **kw)
+        torch.cuda.synchronize()
+        _check_finite(f"metrics K1 {label}", got)
+        errs[label] = max_err(got, ref)
+        if errs[label] > 1e-3:
+            raise RuntimeError(f"metrics: K1 vs plain at bf16 {label} max abs err {errs[label]} > 1e-3")
+    kept.clear()
+    print(f"metrics: K1 vs plain on the metrics' own inputs, bf16 (B, 4096, 96+96, 52): max abs "
+          f"err {errs} (limit 1e-3)", flush=True)
+    return {"per": {k: {kk: v[kk] for kk in ("launches", "peak_gib", "imgs_per_s")} |
+                    {"total_time": v["rec"]["total_time"], "results": v["rec"]["results"]}
+                    for k, v in per.items()},
+            "k1_err": errs}
+
+
+# fp32 copy of the flagship, card against CPU: Inception features relative to
+# max|feature| with TF32 off and with cuDNN TF32 on (PyTorch's default, the
+# precision calc_metrics runs at); for PPL on deterministic renders, the VGG16
+# features relative to max|feature| and the pair distances relative to each
+# distance (see metrics_fp32). Readings on an H100 80GB HBM3 at 700 W: 2.05e-6,
+# 9.6e-4, 3.72e-6 and 1.07e-2 (the random renders' distances 2.92e-2).
+FEAT_TOL, FEAT_TF32_TOL, VGG_TOL, PPL_TOL = 1e-5, 5e-3, 2e-5, 2e-2
+
+
+def fixed_pair_features(G, det, z0, z1, c, epsilon: float = 1e-4) -> tuple:
+    """The detector features of ppl2_wend's two renders of a pair (w space,
+    t = 0, no crop), rendered deterministically: noise 'const' and no
+    generator, so two devices render one function."""
+    from ide3d_tpu_torch.metrics.perceptual_path_length import _crop_and_downsample
+
+    ws0, ws1 = G.mapping(z0, c), G.mapping(z1, c)
+    return tuple(det(_crop_and_downsample(G.synthesis(ws0 + (ws1 - ws0) * s, c).float(), False))
+                 .float().cpu().numpy() for s in (0.0, epsilon))
+
+
+def metrics_fp32(snap: str, imgs: str, smi: str) -> dict:
+    """An fp32 copy of the snapshot's G, card against CPU, on the metrics' own
+    first batch (z, c from RandomState(0) as the metric draws them):
+      * its Inception features through compute_feature_stats_for_generator,
+        with TF32 off (FEAT_TOL x max|feature|) and on the card once more with
+        cuDNN TF32 on for G and the detector (FEAT_TF32_TOL);
+      * for PPL, on the deterministic renders of a pair: the VGG16 features
+        (VGG_TOL x max|feature|) and the pair distances (PPL_TOL relative;
+        1/epsilon² turns the renders' rounding into ~1e-2). PPL's own random
+        renders draw the depth jitter and the importance samples from each
+        device's torch.Generator stream (CPU and CUDA streams differ for one
+        seed): those distances are printed, with the bf16 G's on the card on
+        the fp32 copy's draws, and not held."""
+    from ide3d_tpu_torch.apps import common
+    from ide3d_tpu_torch.data.dataset import ImageFolderDataset
+    from ide3d_tpu_torch.metrics import make_detector
+    from ide3d_tpu_torch.metrics.metric_utils import MetricOptions, \
+        compute_feature_stats_for_generator, sample_labels
+    from ide3d_tpu_torch.metrics.perceptual_path_length import pair_distances
+
+    B = METRIC_BATCH
+    G = common.load_generator(snap, "cpu")
+    ds = ImageFolderDataset(imgs, resolution=G.cfg.img_resolution)
+    rs = np.random.RandomState(0)
+    z0, z1 = rs.randn(B, G.cfg.z_dim), rs.randn(B, G.cfg.z_dim)
+    c = sample_labels(MetricOptions(dataset=ds), rs, B)
+    feats, vgg, drawn = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        G32 = fp32_copy(G, dev)
+
+        def t(a):
+            return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+        opts = MetricOptions(G=G32, dataset=ds, detector=make_detector("inception", device=dev),
+                             num_items=B, batch_size=B, device=dev)
+        feats[dev] = compute_feature_stats_for_generator(opts, capture_all=True,
+                                                         capture_mean_cov=False).get_all()
+        if dev == "cuda":
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+                feats["cuda_tf32"] = compute_feature_stats_for_generator(
+                    opts, capture_all=True, capture_mean_cov=False).get_all()
+        opts = MetricOptions(G=G32, detector=make_detector("vgg16", device=dev), device=dev)
+        with torch.inference_mode():
+            vgg[dev] = fixed_pair_features(G32, opts.detector, t(z0), t(z1), t(c))
+            drawn[dev] = pair_distances(opts, t(z0), t(z1), t(c), t(np.zeros(B)), 0).cpu().numpy()
+            if dev == "cuda":
+                opts.G = G.to(dev)
+                bf16 = pair_distances(opts, t(z0), t(z1), t(c), t(np.zeros(B)), 0).cpu().numpy()
+                G.cpu()
+        del G32, opts
+    for name, v in (("features", feats), ("vgg", vgg), ("drawn ppl", drawn)):
+        for dev, a in v.items():
+            if not np.isfinite(a).all():
+                raise RuntimeError(f"metrics fp32: non-finite {name} on {dev}")
+    scale = np.abs(feats["cpu"]).max()
+    feat_err = float(np.abs(feats["cuda"] - feats["cpu"]).max() / scale)
+    feat_tf32_err = float(np.abs(feats["cuda_tf32"] - feats["cpu"]).max() / scale)
+    vgg_err = float(max(np.abs(a - b).max() / np.abs(b).max()
+                        for a, b in zip(vgg["cuda"], vgg["cpu"])))
+    fixed = {dev: ((f0 - f1) ** 2).sum(axis=-1) / 1e-4**2 for dev, (f0, f1) in vgg.items()}
+    ppl_err = float((np.abs(fixed["cuda"] - fixed["cpu"]) / fixed["cpu"]).max())
+    drawn_err = float((np.abs(drawn["cuda"] - drawn["cpu"]) / drawn["cpu"]).max())
+    print(f"metrics: fp32 copy of the flagship, cuda vs cpu, first batch of {B} (matmul TF32 "
+          f"off): Inception features max abs err / max|feature| {feat_err:.3g} with TF32 off "
+          f"(limit {FEAT_TOL:g}), {feat_tf32_err:.3g} with cuDNN TF32 on for G and Inception "
+          f"(limit {FEAT_TF32_TOL:g}; max|feature| {scale:.4g}); PPL on deterministic renders: "
+          f"VGG16 features max abs err / max|feature| {vgg_err:.3g} (limit {VGG_TOL:g}), pair "
+          f"distances cuda {np.round(fixed['cuda'], 1).tolist()}, cpu "
+          f"{np.round(fixed['cpu'], 1).tolist()}, max relative err {ppl_err:.3g} (limit "
+          f"{PPL_TOL:g}); of PPL's random renders (each device's own draws, not held) max "
+          f"relative err {drawn_err:.3g}; the bf16 G's distances on the card, on the fp32 "
+          f"copy's draws there: {np.round(bf16, 1).tolist()} ({smi})", flush=True)
+    if (feat_err > FEAT_TOL or feat_tf32_err > FEAT_TF32_TOL or vgg_err > VGG_TOL
+            or ppl_err > PPL_TOL):
+        raise RuntimeError(f"metrics fp32 cuda vs cpu: features {feat_err} (limit {FEAT_TOL}), "
+                           f"with TF32 {feat_tf32_err} (limit {FEAT_TF32_TOL}), vgg {vgg_err} "
+                           f"(limit {VGG_TOL}), ppl {ppl_err} (limit {PPL_TOL})")
+    return {"feat_err": feat_err, "feat_tf32_err": feat_tf32_err, "vgg_err": vgg_err,
+            "ppl_err": ppl_err,
+            "ppl_drawn_err": drawn_err, "ppl_fp32": drawn["cuda"].tolist(),
+            "ppl_bf16": bf16.tolist()}
+
+
+def phase_metrics(smi: str) -> dict:
+    import os
+    import tempfile
+
+    from ide3d_tpu_torch.models.generator import GeneratorConfig
+
+    with tempfile.TemporaryDirectory() as root:
+        snap = os.path.join(root, "flagship")
+        write_snapshot(snap, GeneratorConfig(), seed=0)
+        imgs, _ = write_dataset(root, METRIC_IMAGES, 512)
+        counted = metrics_counted(snap, imgs, root, smi)
+        fp32 = metrics_fp32(snap, imgs, smi)
+    return {"counted": counted, "fp32": fp32}
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
@@ -1225,6 +1489,7 @@ def main() -> None:
     del G
     tr = phase_train(smi.splitlines()[0])
     off = phase_offline(smi.splitlines()[0])
+    met = phase_metrics(smi.splitlines()[0])
     main_path, b1 = k["timing"][3], k["timing"][1]  # the frame runs K1 at B=3
     kb = tr["k1_backward"]
     print(json.dumps({"kernels": [{
@@ -1234,7 +1499,8 @@ def main() -> None:
         "replaces": "ide3d_tpu/ops/pallas/ray_march.py:121",
         "launches": f["launches"],
         "max_abs_err": max(k["max_abs_err"], f["frame_err"], off["mesh"]["k1_err"],
-                           *(v["k1_err"] for v in off["video"].values())),
+                           *(v["k1_err"] for v in off["video"].values()),
+                           *met["counted"]["k1_err"].values()),
         "ms": main_path["ms"],
         "plain_ms": main_path["plain_ms"],
         "eager_ms": main_path["eager_ms"],
@@ -1253,6 +1519,8 @@ def main() -> None:
         "video_max_abs_err": {k: v["k1_err"] for k, v in off["video"].items()},
         "mesh_launches": off["mesh"]["launches"],
         "mesh_max_abs_err": off["mesh"]["k1_err"],
+        "metrics_launches": {k: v["launches"] for k, v in met["counted"]["per"].items()},
+        "metrics_max_abs_err": met["counted"]["k1_err"],
     }, {
         "name": "sort_integrate_backward",
         "route": "cuda",

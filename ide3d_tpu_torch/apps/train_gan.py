@@ -9,8 +9,10 @@ compact uint8 loader, batches to the card through pinned memory, the G-first
 train step with lazy R1 (train/gan.py), the ADA p-controller fed from the
 steps' sign statistics read back every 4 steps, G_ema sample grids, snapshots
 (io/checkpoint.py) and interval means to stats.jsonl. `--resume` restores G,
-D, G_ema, both optimizers, pl_mean, the step and ada_p. Not ported yet:
-`--metrics`, `--wavelet-aa` and `--pl-weight > 0` raise NotImplementedError.
+D, G_ema, both optimizers, pl_mean, the step and ada_p. `--metrics fid,kid`
+evaluates G_ema at every snapshot and at the end (once per kimg point) on the
+un-mirrored dataset, appending {"kimg", ...record} to metric-<name>.jsonl.
+Not ported yet: `--wavelet-aa` and `--pl-weight > 0` raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -46,14 +48,18 @@ def main(argv=None):
     ap.add_argument("--pl-weight", type=float, default=0.0,
                     help="path-length regularization weight (only 0: not ported)")
     ap.add_argument("--resume", default=None, help="a snapshot directory")
-    ap.add_argument("--metrics", default="", help="metrics at each snapshot (not ported: raises)")
+    ap.add_argument("--metrics", default="",
+                    help="comma list (e.g. fid,kid) evaluated on G_ema at every snapshot and at "
+                         "the end, reported to metric-<name>.jsonl")
+    ap.add_argument("--metric-items", type=int, default=500)
+    ap.add_argument("--metric-detector", choices=["pixel", "inception", "vgg16"], default="pixel")
+    ap.add_argument("--metric-detector-weights", default=None,
+                    help="torch state_dict (.pth) for the metric detector")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--preset", choices=["full", "small", "tiny"], default="full",
                     help="tiny = smoke-test scale (CPU); small = 64px validation scale")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.metrics.strip():
-        raise NotImplementedError("--metrics is not ported yet")
     if args.wavelet_aa:
         raise NotImplementedError("--wavelet-aa is not ported yet")
     if args.pl_weight > 0:
@@ -105,6 +111,30 @@ def main(argv=None):
     step_fn = make_gan_train_step(tcfg)
     gen = torch.Generator(device=device).manual_seed(args.seed + 1)
     acc = StatsAccumulator()
+
+    metric_names = [m.strip() for m in args.metrics.split(",") if m.strip()]
+    metric_done = set()
+    if metric_names:
+        from ..metrics import calc_metric, make_detector
+
+        met_det = make_detector(args.metric_detector, args.metric_detector_weights, device=device)
+        # The real statistics come from the un-mirrored dataset (the training
+        # loader's xflip copies would otherwise enter the cached real bank).
+        metric_dataset = CameraLabeledDataset(args.data, args.seg, resolution=args.resolution,
+                                              xflip=False)
+
+    def eval_metrics(kimg):
+        if not metric_names or kimg in metric_done:  # the final save can meet a snapshot
+            return
+        metric_done.add(kimg)
+        for name in metric_names:
+            rec = calc_metric(name, G=state.G_ema, dataset=metric_dataset, detector=met_det,
+                              num_items=args.metric_items, batch_size=args.batch,
+                              cache_dir=os.path.join(args.outdir, ".metric_cache"), device=device)
+            line = {"kimg": kimg, **rec}
+            print(json.dumps(line, default=float))
+            with open(os.path.join(args.outdir, f"metric-{name}.jsonl"), "a") as f:
+                f.write(json.dumps(line, default=float) + "\n")
 
     grid_z = torch.as_tensor(np.random.RandomState(1).randn(16, gcfg.z_dim), dtype=torch.float32,
                              device=device)
@@ -160,6 +190,7 @@ def main(argv=None):
             next_grid = cur_img + args.grid_kimg * 1000
         if cur_img >= next_snap:
             save(f"snapshot-{cur_img // 1000:06d}")
+            eval_metrics(cur_img / 1000)
             next_snap = cur_img + args.snap_kimg * 1000
 
     if sign_buf:  # ended mid-window: the final ada_p reflects every step
@@ -169,6 +200,7 @@ def main(argv=None):
                          speed_kimg=args.ada_speed, p_max=args.ada_pmax)
         ada_p = float(ada.p)
     save("snapshot-final")
+    eval_metrics(cur_img / 1000)
     print("done")
     return state
 

@@ -180,6 +180,35 @@ class ImageFolderDataset:
             mask = REMAP_19_TO_5[mask]
         return mask  # HW int
 
+    def get_label(self, idx: int) -> np.ndarray:
+        """The label of item idx, relabeled for a mirrored copy, without reading
+        its image (the reference dataset's get_label)."""
+        raw = int(self._raw_idx[idx])
+        if self._raw_labels is None:
+            return np.zeros(0, np.float32)
+        label = self._raw_labels[raw].copy()
+        if self._xflip[idx] and label.size == 25:
+            label[[1, 2, 3, 4, 8]] *= -1
+        return label
+
+    def __getitem__(self, idx: int):
+        """(image uint8 HWC, [seg one-hot HWC float32 when load_seg], label),
+        x-flipped and relabeled for the mirrored copies (the metrics' reader)."""
+        raw = int(self._raw_idx[idx])
+        img = self._load_image(raw)
+        seg = None
+        if self.load_seg:
+            mask = self._load_seg_mask(raw)
+            seg = np.zeros((mask.shape[0], mask.shape[1], self.num_seg_classes), np.float32)
+            np.put_along_axis(seg, mask[..., None], 1.0, axis=-1)
+        if self._xflip[idx]:
+            img = img[:, ::-1].copy()
+            if seg is not None:
+                seg = seg[:, ::-1].copy()
+        if seg is not None:
+            return img, seg, self.get_label(idx)
+        return img, self.get_label(idx)
+
     def raw_item(self, idx: int):
         """Raw uint8 image + integer mask + label + xflip flag, for the compact
         loader (which flips the pixels; the label is relabeled here)."""

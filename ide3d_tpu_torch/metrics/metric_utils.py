@@ -1,0 +1,207 @@
+"""Feature statistics for the metric suite.
+
+Counterpart of ide3d_tpu/metrics/metric_utils.py: `FeatureStats` (a raw
+feature bank and running moments, numpy), `MetricOptions`, the disk cache of
+the dataset's statistics, and the two extraction loops. The generator side
+draws z and c from `np.random.RandomState(opts.seed)` exactly as the JAX
+package does, runs G at batch `opts.batch_size` on `opts.device`, and hands the
+fp32 image to the detector; features come back to the host as numpy.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import os
+import pickle
+from typing import Optional
+
+import numpy as np
+import torch
+
+
+class FeatureStats:
+    """Raw feature bank + running moments (contract: metric_utils.py:97-162)."""
+
+    def __init__(self, capture_all: bool = False, capture_mean_cov: bool = False,
+                 max_items: Optional[int] = None):
+        self.capture_all = capture_all
+        self.capture_mean_cov = capture_mean_cov
+        self.max_items = max_items
+        self.num_items = 0
+        self.num_features = None
+        self.all_features = []
+        self.raw_mean = None
+        self.raw_cov = None
+
+    def set_num_features(self, num_features: int):
+        if self.num_features is None:
+            self.num_features = num_features
+            self.raw_mean = np.zeros(num_features, np.float64)
+            self.raw_cov = np.zeros((num_features, num_features), np.float64)
+        elif num_features != self.num_features:
+            raise ValueError(f"{num_features} features, the bank holds {self.num_features}")
+
+    def is_full(self) -> bool:
+        return self.max_items is not None and self.num_items >= self.max_items
+
+    def append(self, x: np.ndarray):
+        x = np.asarray(x, np.float32)
+        if x.ndim != 2:
+            raise ValueError(f"features must be [N, dim], got {x.shape}")
+        if self.max_items is not None and self.num_items + x.shape[0] > self.max_items:
+            if self.is_full():
+                return
+            x = x[: self.max_items - self.num_items]
+        self.set_num_features(x.shape[1])
+        self.num_items += x.shape[0]
+        if self.capture_all:
+            self.all_features.append(x)
+        if self.capture_mean_cov:
+            x64 = x.astype(np.float64)
+            self.raw_mean += x64.sum(axis=0)
+            self.raw_cov += x64.T @ x64
+
+    def get_all(self) -> np.ndarray:
+        assert self.capture_all
+        return np.concatenate(self.all_features, axis=0)
+
+    def get_mean_cov(self):
+        assert self.capture_mean_cov
+        mean = self.raw_mean / self.num_items
+        cov = self.raw_cov / self.num_items - np.outer(mean, mean)
+        return mean, cov
+
+    # ------------------------------------------------------------------- cache
+
+    def save(self, path: str):
+        with open(path, "wb") as f:
+            pickle.dump(self.__dict__, f)
+
+    @classmethod
+    def load(cls, path: str) -> "FeatureStats":
+        """Read a file that `save` wrote (a pickle: only this program's own cache)."""
+        with open(path, "rb") as f:
+            state = pickle.load(f)
+        obj = cls()
+        obj.__dict__.update(state)
+        return obj
+
+
+@dataclasses.dataclass
+class MetricOptions:
+    """Everything a metric needs (the reference's MetricOptions,
+    metric_utils.py:23-40). G and the detector are modules that hold their
+    weights; both must live on `device`."""
+
+    G: object = None  # Ide3dGenerator
+    dataset: object = None  # indexable -> (img uint8 HWC, [seg], label); get_label(i)
+    detector: object = None  # a features.make_detector module
+    num_items: int = 1000
+    # Real-side item cap (reference max_real, metric_main.py:86-148): -1 =
+    # follow num_items, None = the full dataset, int = an explicit cap.
+    max_real: Optional[int] = -1
+    batch_size: int = 8
+    cache_dir: Optional[str] = None
+    seed: int = 0
+    # conditional-render evaluation (reference metric_utils.py:70-81): needs
+    # GeneratorConfig.use_encoder, which the port does not have yet.
+    cond_render: bool = False
+    device: torch.device | str = "cuda"
+
+
+def _cache_path(opts: MetricOptions, tag: str,
+                capture_all: bool, capture_mean_cov: bool) -> Optional[str]:
+    if opts.cache_dir is None:
+        return None
+    # The capture flags are part of the key: a mean/cov-only entry (FID)
+    # cannot serve a raw-feature-bank consumer (KID/PR).
+    n_key = _resolved_max_real(opts) if tag == "dataset" else opts.num_items
+    key = (f"{tag}-{type(opts.detector).__name__}-{n_key}"
+           f"-{int(capture_all)}{int(capture_mean_cov)}")
+    # The detector's weights too: one class under a random init and under a
+    # weights file gives other features of the same data.
+    prov = getattr(opts.detector, "provenance", None)
+    if prov is not None:
+        key += f"-{prov['source']}-{prov['weights']}"
+    if opts.dataset is not None:
+        # The dataset's identity too: the same path loaded with another xflip,
+        # resolution or length has other real statistics (train_gan's metric
+        # dataset pins xflip=False while the training loader mirrors).
+        if hasattr(opts.dataset, "_path"):
+            key += "-" + os.path.basename(str(opts.dataset._path))
+        for attr in ("xflip", "resolution"):
+            if hasattr(opts.dataset, attr):
+                key += f"-{attr}{getattr(opts.dataset, attr)}"
+        try:
+            key += f"-n{len(opts.dataset)}"
+        except TypeError:
+            pass
+    h = hashlib.md5(key.encode()).hexdigest()[:12]
+    os.makedirs(opts.cache_dir, exist_ok=True)
+    return os.path.join(opts.cache_dir, f"stats-{h}.pkl")
+
+
+def _resolved_max_real(opts: MetricOptions) -> Optional[int]:
+    """Real-side item cap: the reference's max_real semantics
+    (metrics/metric_utils.py:216, metric_main.py:86-148)."""
+    if opts.max_real == -1:
+        return opts.num_items
+    return opts.max_real  # None = full dataset
+
+
+def compute_feature_stats_for_dataset(
+    opts: MetricOptions, capture_all=False, capture_mean_cov=True
+) -> FeatureStats:
+    cache = _cache_path(opts, "dataset", capture_all, capture_mean_cov)
+    if cache and os.path.exists(cache):
+        return FeatureStats.load(cache)
+
+    cap = _resolved_max_real(opts)
+    stats = FeatureStats(capture_all, capture_mean_cov, max_items=cap)
+    B = opts.batch_size
+    n = len(opts.dataset) if cap is None else min(len(opts.dataset), cap)
+    i = 0
+    with torch.inference_mode():
+        while not stats.is_full() and i < n:
+            imgs = np.stack([opts.dataset[j][0] for j in range(i, min(i + B, n))])
+            x = torch.from_numpy(imgs).to(opts.device).float() / 127.5 - 1.0
+            stats.append(opts.detector(x).float().cpu().numpy())
+            i += B
+
+    if cache:
+        stats.save(cache)
+    return stats
+
+
+def sample_labels(opts: MetricOptions, rs: np.random.RandomState, n: int) -> np.ndarray:
+    """[n, 25] camera labels: drawn from the dataset's poses when it has them
+    (one rs.randint draw, the same as the JAX package's), else the canonical
+    pose (no draw). The labels come from `dataset.get_label`, as in the
+    reference: reading the items (the JAX package takes item[-1]) decodes
+    each drawn image (147 ms a batch of 8 at 512² on an H100 machine's host)."""
+    from ..render.camera import CANONICAL_POSE_25
+
+    if opts.dataset is not None and getattr(opts.dataset, "label_dim", 0) == 25:
+        idx = rs.randint(len(opts.dataset), size=n)
+        return np.stack([opts.dataset.get_label(int(i)) for i in idx]).astype(np.float32)
+    return np.tile(np.asarray(CANONICAL_POSE_25, np.float32), (n, 1))
+
+
+def compute_feature_stats_for_generator(
+    opts: MetricOptions, capture_all=False, capture_mean_cov=True
+) -> FeatureStats:
+    if opts.cond_render:
+        raise NotImplementedError(
+            "cond_render needs GeneratorConfig.use_encoder, not ported yet (ROADMAP Queue 1 [11])")
+    stats = FeatureStats(capture_all, capture_mean_cov, max_items=opts.num_items)
+    G, dev = opts.G, opts.device
+    rs = np.random.RandomState(opts.seed)
+    B = opts.batch_size
+    with torch.inference_mode():
+        while not stats.is_full():
+            z = torch.as_tensor(rs.randn(B, G.cfg.z_dim), dtype=torch.float32, device=dev)
+            c = torch.as_tensor(sample_labels(opts, rs, B), device=dev)
+            img = G(z, c).float()
+            stats.append(opts.detector(img).float().cpu().numpy())
+    return stats

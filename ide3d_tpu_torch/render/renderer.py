@@ -45,6 +45,8 @@ class RenderParams:
     nerf_noise: float = 0.0
     last_back: bool = False
     white_back: bool = False
+    # principal-point shift in NDC units (the equivariance metrics)
+    pixel_offset: tuple = (0.0, 0.0)
 
 
 class TriplaneRenderer(nn.Module):
@@ -126,7 +128,7 @@ class TriplaneRenderer(nn.Module):
         dev = cam2world.device
 
         points_cam, z_vals, rays_d_cam = get_initial_rays(
-            B, S, (W, H), rp.fov, rp.ray_start, rp.ray_end, device=dev)
+            B, S, (W, H), rp.fov, rp.ray_start, rp.ray_end, offset=rp.pixel_offset, device=dev)
         if generator is not None:
             points_cam, z_vals = perturb_z_vals(generator, points_cam, z_vals, rays_d_cam)
         pts, dirs, origins = transform_rays_to_world(points_cam, rays_d_cam, cam2world)

@@ -148,16 +148,21 @@ def _write_dataset(root, n=4):
 
 def test_train_gan_cli_runs_snapshots_and_resumes(tmp_path):
     """The CLI on the CPU (tiny preset): two steps, a sample grid, the final
-    snapshot; --resume of it restores every state dict, the step and ada_p."""
+    snapshot and --metrics fid (pixel detector) at its kimg; --resume of it
+    restores every state dict, the step and ada_p."""
     from ide3d_tpu_torch.apps.train_gan import main
 
     common = _write_dataset(tmp_path) + [
         "--batch", "2", "--kimg", "0.004", "--resolution", str(R), "--preset", "tiny",
         "--grid-kimg", "1", "--snap-kimg", "1", "--fixed-ada-p", "0.3", "--device", "cpu"]
-    first = main(common + ["--outdir", str(tmp_path / "run")])
+    first = main(common + ["--outdir", str(tmp_path / "run"), "--metrics", "fid",
+                           "--metric-items", "4", "--metric-detector", "pixel"])
     files = os.listdir(tmp_path / "run")
     assert "snapshot-final" in files and "fakes000000.png" in files and "fakes000000_seg.png" in files
     assert first.step == 2
+    (line,) = [json.loads(s) for s in (tmp_path / "run" / "metric-fid.jsonl").read_text().splitlines()]
+    assert line["kimg"] == 0.004 and line["num_items"] == 4 and np.isfinite(line["results"]["fid"])
+    assert ".metric_cache" in files
     resumed = main(common + ["--outdir", str(tmp_path / "resumed"),
                              "--resume", str(tmp_path / "run" / "snapshot-final")])
     assert resumed.step == 2
@@ -170,7 +175,7 @@ def test_train_gan_cli_runs_snapshots_and_resumes(tmp_path):
     assert meta["step"] == 2 and meta["ada_p"] == 0.3
 
 
-@pytest.mark.parametrize("flag", [["--metrics", "fid"], ["--wavelet-aa"], ["--pl-weight", "2"]])
+@pytest.mark.parametrize("flag", [["--wavelet-aa"], ["--pl-weight", "2"]])
 def test_train_gan_refuses_what_is_not_ported(tmp_path, flag):
     from ide3d_tpu_torch.apps.train_gan import main
 
@@ -179,12 +184,19 @@ def test_train_gan_refuses_what_is_not_ported(tmp_path, flag):
 
 
 def test_training_modules_leave_jax_out():
+    """The training modules and the metric suite that train_gan --metrics
+    runs import neither jax nor the JAX package."""
     import subprocess
     import sys
 
     code = ("import sys, ide3d_tpu_torch.apps.train_gan, ide3d_tpu_torch.train.gan, "
             "ide3d_tpu_torch.data.dataset, ide3d_tpu_torch.io.checkpoint, "
-            "ide3d_tpu_torch.parallel.stats; print('jax' in sys.modules, 'ide3d_tpu' in sys.modules)")
+            "ide3d_tpu_torch.parallel.stats, ide3d_tpu_torch.metrics.metric_main, "
+            "ide3d_tpu_torch.metrics.lpips, ide3d_tpu_torch.metrics.perceptual_path_length, "
+            "ide3d_tpu_torch.metrics.equivariance, ide3d_tpu_torch.metrics.frechet_inception_distance, "
+            "ide3d_tpu_torch.metrics.kernel_inception_distance, ide3d_tpu_torch.metrics.precision_recall, "
+            "ide3d_tpu_torch.metrics.inception_score, ide3d_tpu_torch.apps.calc_metrics; "
+            "print('jax' in sys.modules, 'ide3d_tpu' in sys.modules)")
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run([sys.executable, "-c", code], cwd=repo, capture_output=True, text=True,
                          check=True, timeout=120)
