@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one CUDA card: build, check and time K1,
-then drive the frame, the Painter, training, offline generation and the
-metric suite at the flagship width.
+then drive the frame, the Painter, training, offline generation, the
+metric suite and inversion at the flagship width.
 
     python3 chip_smoke.py
 
@@ -77,20 +77,54 @@ Phases, one line each; any failure ends the run with a non-zero exit:
                random renders' distances and the bf16 G's are printed.
                Phase 7's train_gan run also takes --metrics fid
                (inception, 16 items) and must write a finite FID line.
+ 10. inversion - the flagship bf16 snapshot and 2 targets (512² renders of
+               it at a known w + 0.3 N(0, 1), with their seg argmax as masks):
+               apps.run_pti.main at 10 projector + 10 PTI steps,
+               --lpips-threshold 0, at cuDNN TF32 on (PyTorch's default, as
+               a user's process; so is the timed train_hybrid_encoder run),
+               with K1's (forward, backward) launches exact per projector
+               step (1, 1), PTI step (1, 1) and
+               _save_viz (1, 0), the reconstruction MSE falling in both
+               loops, each model_<name> reloaded by load_generator within 1
+               uint8 level of its _compare.png; one target with --join-view
+               --use-locality --video (2 + 4 steps: (4, 3) a PTI step, (61, 0)
+               for _save_viz) and one from e4e pivots (a random-init
+               E4eEncoder(1024) written in the pSp layout with
+               opts.encoder_type); K1 on a projector step's captured inputs
+               against plain (bf16 <= 1e-3) and its backward on that step's
+               own cotangents against autograd through plain (<= 1e-2 x
+               max|grad|); fp32 copies, card (with cuDNN's and with PyTorch's
+               own convolutions) against the CPU in fp32 and in float64: a
+               projector step's gradients in w+ and the noise, a PTI step's in
+               the synthesis parameters (<= 1e-4 x max|grad|, the w+ gradient
+               with cuDNN <= 2e-3); apps.train_hybrid_encoder.main
+               at --batch 4 for 3 steps on 8 labelled 512² images with masks,
+               both branches, random-init --bisenet --vgg-weights
+               --lpips-weights --arcface-weights files, (3, 2) K1 launches a
+               step, then --resume restoring E, Adam and the step;
+               finetune_hybrid_encoder (3 steps), latent_creator (2 x 5 steps),
+               calc_losses_on_images l2,lpips,id; ArcFace, BiSeNet and e4e
+               (both variants) as fp32 copies, card against CPU (<= 1e-5 x
+               max|output|). Event ms per step and peaks; the arithmetic of a
+               default run_pti (450 + 350 steps), labelled as arithmetic.
 Then one JSON line with the kernels, and last {"ok": true, "device": {...}}.
 In that line K1's `ms` and `plain_ms` are device times per call at B=3 from
 the CUDA graphs; `eager_ms` is the time between CUDA events around one eager
 call and `host_ms` the host's time in that call, medians at B=3; `b1` holds
 the same at B=1; `launches` counts phase 5's frames, `train_launches` phase
 7's steps, `video_launches` and `mesh_launches` phase 8's runs,
-`metrics_launches` phase 9's per metric; its `max_abs_err` is the largest of
-phases 3, 5, 8 and 9 (`metrics_max_abs_err` phase 9's). The backward's `ms` is its graph time at B=4, `plain_ms` the plain
-backward's event time, `launches` phase 7's steps, `max_abs_err` relative to
-max|grad|.
+`metrics_launches` phase 9's per metric, `inversion_launches` phase 10's per
+step of each loop, per _save_viz and in total; its `max_abs_err` is the
+largest of phases 3, 5, 8, 9 and 10 (`metrics_max_abs_err` phase 9's,
+`inversion_max_abs_err` phase 10's). The backward's `ms` is its graph time at
+B=4, `plain_ms` the plain backward's event time, `launches` phase 7's steps,
+`inversion_launches` phase 10's, `max_abs_err` relative to max|grad| (the
+largest of phases 7 and 10), `inversion_step_ms` phase 10's medians.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -1479,6 +1513,704 @@ def phase_metrics(smi: str) -> dict:
     return {"counted": counted, "fp32": fp32}
 
 
+# Phase 10: inversion at the flagship width. K1 (forward, backward) launches:
+# a projector step renders once and differentiates once; a PTI step likewise,
+# + the mirrored view (1, 1) with --join-view, + the locality term's tuned
+# render (1, 1) and the frozen G's render (1, 0) with --use-locality; _save_viz
+# renders the pivot once (+ 60 orbit frames with --video); an encoder step
+# renders the synthetic target without a gradient (1, 0), its reconstruction
+# (1, 1) and the real batch's reconstruction (1, 1).
+INV_TARGETS = 2
+INV_PROJ_STEPS, INV_PTI_STEPS, INV_JV_PTI_STEPS = 10, 10, 4
+INV_LAUNCHES = {"projector": (1, 1), "pti": (1, 1), "pti_jv_loc": (4, 3), "viz": (1, 0),
+                "viz_video": (61, 0), "encoder": (3, 2)}
+ENC_STEPS, ENC_BATCH = 3, 4
+INV_RES = 512  # the flagship's output, the targets' and the datasets' size
+# Card against CPU, fp32, each gradient to 1e-4 x max|grad|, and every fp32 run
+# against the CPU in float64 likewise, but for one: the w+ gradient of the card
+# with cuDNN's convolutions, held to 2e-3. Its rows 0-2 (the 4² block's
+# styles) read 4.59e-4 against the CPU in fp32 and in float64 alike, while the
+# CPU's fp32 reads 3.2e-6 against float64 and the card with PyTorch's own CUDA
+# convolutions 4.2e-5: the card's cuDNN fp32 convolutions carry the gap, each
+# within 4.3e-6 of max of the same convolution on the CPU
+# (tools/check_inversion_grads.py; H100 80GB HBM3, 700 W; PERF.md, open
+# questions).
+INV_GRAD_TOL, INV_W_TOL, FACE_TOL = 1e-4, 2e-3, 1e-5
+
+
+class StepMeter:
+    """K1's forward and backward launches and a CUDA event at every Adam step
+    (the projector, PTI and the encoder trainer take one a loop iteration) and
+    at every other mark, under the label of the loop in progress; the counts
+    restart at each mark."""
+
+    def __init__(self):
+        from ide3d_tpu_torch.ops import ray_march
+
+        self.records, self.label = [], None
+        self.mse, self.peak = [], {}
+        ray_march.sort_integrate.launches = ray_march.sort_integrate_backward.launches = 0
+
+    def mark(self, label) -> None:
+        from ide3d_tpu_torch.ops import ray_march
+
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.records.append((label, ray_march.sort_integrate.launches,
+                             ray_march.sort_integrate_backward.launches, ev))
+        ray_march.sort_integrate.launches = ray_march.sort_integrate_backward.launches = 0
+
+    def launches(self, label) -> list:
+        return [(f, b) for lab, f, b, _ in self.records if lab == label]
+
+    def step_ms(self, label) -> list:
+        """Event ms of each step after the first of its loop (the first one's
+        interval holds the loop's set-up)."""
+        torch.cuda.synchronize()
+        return [e1.elapsed_time(e2) for (l1, _, _, e1), (l2, _, _, e2)
+                in zip(self.records, self.records[1:]) if l1 == l2 == label]
+
+    def check(self, want: dict, name: str) -> None:
+        """Every record of a label in `want` has exactly its launches; marks
+        between the loops launch nothing."""
+        for lab, f, b, _ in self.records:
+            if lab in want and (f, b) != want[lab]:
+                raise RuntimeError(f"{name}: K1 (forward, backward) launches {(f, b)} at a {lab} "
+                                   f"record, want {want[lab]}")
+            if lab == "between" and (f, b) != (0, 0):
+                raise RuntimeError(f"{name}: K1 launched {(f, b)} outside the inversion loops")
+
+
+def _metered(meter: StepMeter, pti_label: str = "pti", viz_label: str = "viz"):
+    """Patches Adam.step, train.pti.project_w_plus / pivotal_tune and
+    run_pti._save_viz (run_pti imports them at the call) so that `meter`
+    labels each loop's steps; around each loop the reconstruction MSE of its
+    start and its result (renders labelled "extra") and its peak memory.
+    Until the restore function it returns is called, cuDNN runs at PyTorch's
+    default precision, TF32 on, as a user's process does (phase 1 turns it
+    off for the rest of the script)."""
+    from ide3d_tpu_torch.apps import run_pti
+    from ide3d_tpu_torch.train import pti
+
+    real = (torch.optim.Adam.step, pti.project_w_plus, pti.pivotal_tune, run_pti._save_viz)
+
+    def mse(G, w, c, target):
+        with torch.no_grad():
+            return float((G.synthesis(w, c).float() - target).square().mean())
+
+    def loop(label, fn, *a, **kw):
+        meter.mark("between")
+        torch.cuda.reset_peak_memory_stats()
+        meter.label = label
+        try:
+            return fn(*a, **kw)
+        finally:
+            meter.label = None
+            torch.cuda.synchronize()
+            meter.peak[label] = max(meter.peak.get(label, 0.0),
+                                    torch.cuda.max_memory_allocated() / 2**30)
+
+    def step(opt, *a, **kw):
+        out = real[0](opt, *a, **kw)
+        if meter.label is not None:
+            meter.mark(meter.label)
+        return out
+
+    def project(G, target, c, cfg, initial_w=None, generator=None, **kw):
+        state = generator.get_state()
+        w, noise = loop("projector", real[1], G, target, c, cfg, initial_w=initial_w,
+                        generator=generator, **kw)
+        g = torch.Generator(device=target.device)
+        g.set_state(state)
+        w0 = initial_w
+        if w0 is None:
+            w_avg, _ = pti.compute_w_stats(G, c, cfg.w_avg_samples, g)
+            w0 = w_avg[:, None].repeat(1, G.num_ws, 1)
+        meter.mse.append(("projector", mse(G, w0, c, target),
+                          mse(run_pti._with_noise(G, noise), w, c, target)))
+        meter.mark("extra")
+        return w, noise
+
+    def tune(G, w, target, c, cfg, *a, **kw):
+        before = mse(G, w, c, target)
+        meter.mark("extra")
+        tuned = loop(pti_label, real[2], G, w, target, c, cfg, *a, **kw)
+        meter.mse.append((pti_label, before, mse(tuned, w, c, target)))
+        meter.mark("extra")
+        return tuned
+
+    def viz(*a, **kw):
+        meter.mark("between")
+        out = real[3](*a, **kw)
+        meter.mark(viz_label)
+        return out
+
+    torch.optim.Adam.step, pti.project_w_plus, pti.pivotal_tune, run_pti._save_viz = \
+        step, project, tune, viz
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+
+    def restore():
+        torch.optim.Adam.step, pti.project_w_plus, pti.pivotal_tune, run_pti._save_viz = real
+        torch.backends.cudnn.allow_tf32 = tf32
+
+    return restore
+
+
+def write_targets(G, root: str, n: int) -> tuple:
+    """n targets: G's render at a known w (seed i) plus an offset (0.3 N(0, 1)),
+    at the front camera, as 512² PNGs; their seg argmax as mask PNGs."""
+    import os
+
+    import PIL.Image
+
+    from ide3d_tpu_torch.apps.common import save_image_grid
+    from ide3d_tpu_torch.render.camera import CANONICAL_POSE_25
+
+    imgs, masks = os.path.join(root, "targets"), os.path.join(root, "target_masks")
+    os.makedirs(imgs)
+    os.makedirs(masks)
+    c = torch.as_tensor(CANONICAL_POSE_25, device="cuda")[None]
+    for i in range(n):
+        rs = np.random.RandomState(100 + i)
+        with torch.no_grad():
+            w = G.mapping(torch.as_tensor(rs.randn(1, G.z_dim), dtype=torch.float32, device="cuda"), c)
+            w = w + 0.3 * torch.as_tensor(rs.randn(1, G.num_ws, G.w_dim), dtype=torch.float32,
+                                          device="cuda")
+            img, seg = G.synthesis(w, c, return_seg=True)
+        save_image_grid(img.float().cpu().numpy(), os.path.join(imgs, f"t{i}.png"))
+        PIL.Image.fromarray(seg[0].argmax(-1).to(torch.uint8).cpu().numpy()).save(
+            os.path.join(masks, f"t{i}.png"))
+    return imgs, masks
+
+
+def _check_reload(outdir: str, name: str) -> float:
+    """model_<name> through load_generator renders the pivot within 1 uint8
+    level of <name>_compare.png's reconstruction. Returns the largest level gap."""
+    import os
+
+    import PIL.Image
+
+    from ide3d_tpu_torch.apps import common
+
+    G = common.load_generator(os.path.join(outdir, f"model_{name}"), "cuda")
+    ws = torch.as_tensor(np.load(os.path.join(outdir, f"{name}.npz"))["ws"], device="cuda")
+    c = torch.as_tensor(np.load(os.path.join(outdir, f"{name}_label.npz"))["c"], device="cuda")
+    # at the precision run_pti rendered the compare image with (_metered)
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+        img = G.synthesis(ws, c, noise_mode="const")[0].float().cpu().numpy()
+    want = np.rint((img + 1) * 127.5).clip(0, 255)
+    pair = np.asarray(PIL.Image.open(os.path.join(outdir, f"{name}_compare.png")), np.float32)
+    R = img.shape[0]
+    gap = float(np.abs(pair[:, R:] - want).max())
+    if gap > 1:
+        raise RuntimeError(f"run_pti: model_{name} renders {gap} uint8 levels off its compare image")
+    return gap
+
+
+def inversion_pti(snap: str, imgs: str, root: str, smi: str) -> dict:
+    """apps.run_pti.main: 2 targets at 10 + 10 steps; 1 with --join-view
+    --use-locality --video (2 + 4); 1 from e4e pivots (2 + 2). Launches per
+    step and per _save_viz, MSE falling in both loops, the snapshots' reload,
+    event ms per step, peaks; K1's inputs and cotangents of a projector step."""
+    import os
+
+    from ide3d_tpu_torch.apps import run_pti
+    from ide3d_tpu_torch.ops import ray_march
+    from ide3d_tpu_torch.render import renderer
+
+    captured = {}
+    meter = StepMeter()
+
+    def capture(*args, **kw):
+        out = ray_march.sort_integrate(*args, **kw)
+        if not captured and meter.label == "projector" and args[1].requires_grad:
+            captured["args"] = tuple(a.detach() for a in args)
+            captured["kw"] = kw
+            captured["cot"] = [None, None, None]
+            for i, t in enumerate(out):
+                if t.requires_grad:
+                    # an output the step does not use gets None (zeros below)
+                    t.register_hook(lambda g, i=i: captured["cot"].__setitem__(
+                        i, None if g is None else g.detach()))
+        return out
+
+    base = ["--network", snap, "--lpips-threshold", "0", "--device", "cuda"]
+    e4e = os.path.join(root, "e4e.pt")
+    e4e_model = write_e4e(e4e)
+    restore = _metered(meter)
+    renderer.sort_integrate = capture
+    try:
+        t0 = time.perf_counter()
+        run_pti.main(base + ["--images", imgs, "--outdir", os.path.join(root, "pti"),
+                             "--projector-steps", str(INV_PROJ_STEPS), "--pti-steps",
+                             str(INV_PTI_STEPS)])
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        meter.mark("between")
+    finally:
+        restore()
+        renderer.sort_integrate = ray_march.sort_integrate
+    meter.check({k: INV_LAUNCHES[k] for k in ("projector", "pti", "viz")}, "run_pti")
+    main = {"launches": {k: meter.launches(k) for k in ("projector", "pti", "viz")},
+            "ms": {k: meter.step_ms(k) for k in ("projector", "pti")}, "mse": meter.mse,
+            "peak_gib": meter.peak, "run_s": main_s}
+    if len(main["launches"]["projector"]) != INV_TARGETS * INV_PROJ_STEPS \
+            or len(main["launches"]["pti"]) != INV_TARGETS * INV_PTI_STEPS \
+            or len(main["launches"]["viz"]) != INV_TARGETS:
+        raise RuntimeError(f"run_pti: steps counted {[(k, len(v)) for k, v in main['launches'].items()]}")
+    for label, before, after in meter.mse:
+        if not (np.isfinite(after) and after < before):
+            raise RuntimeError(f"run_pti: the {label} loop's reconstruction MSE {before} -> {after}")
+    names = [os.path.splitext(f)[0] for f in sorted(os.listdir(imgs))]
+    main["reload_gap"] = max(_check_reload(os.path.join(root, "pti"), n) for n in names)
+
+    jv = StepMeter()
+    restore = _metered(jv, pti_label="pti_jv_loc", viz_label="viz_video")
+    try:
+        run_pti.main(base + ["--images", os.path.join(imgs, f"{names[0]}.png"), "--outdir",
+                             os.path.join(root, "pti_jv"), "--projector-steps", "2", "--pti-steps",
+                             str(INV_JV_PTI_STEPS), "--join-view", "--use-locality", "--video"])
+        jv.mark("between")
+    finally:
+        restore()
+    jv.check({k: INV_LAUNCHES[k] for k in ("projector", "pti_jv_loc", "viz_video")},
+             "run_pti --join-view --use-locality --video")
+    files = os.listdir(os.path.join(root, "pti_jv"))
+    if not any(f.startswith(f"{names[0]}_orbit.") for f in files):
+        raise RuntimeError(f"run_pti --video wrote {files}")
+    join = {"launches": {k: jv.launches(k) for k in ("projector", "pti_jv_loc", "viz_video")},
+            "ms": jv.step_ms("pti_jv_loc"), "peak_gib": jv.peak.get("pti_jv_loc"), "mse": jv.mse}
+
+    em = StepMeter()
+    restore = _metered(em)
+    try:
+        run_pti.main(base + ["--images", os.path.join(imgs, f"{names[0]}.png"), "--outdir",
+                             os.path.join(root, "pti_e4e"), "--projector-steps", "2",
+                             "--pti-steps", "2", "--e4e", e4e])
+        em.mark("between")
+    finally:
+        restore()
+    em.check({k: INV_LAUNCHES[k] for k in ("projector", "pti", "viz")}, "run_pti --e4e")
+    start = torch.as_tensor(np.load(os.path.join(root, "pti_e4e", f"{names[0]}.npz"))["ws"])
+    if not torch.isfinite(start).all():
+        raise RuntimeError("run_pti --e4e: non-finite pivot")
+
+    # K1 on a projector step's own inputs and cotangents, kernel against plain.
+    args, kw = captured["args"], captured["kw"]
+    B, Rr, _, c1 = args[1].shape
+    cot = [torch.zeros(B, Rr, n, device="cuda") if g is None else g.float().contiguous()
+           for g, n in zip(captured["cot"], (c1 - 1, 1, 1))]
+    with torch.no_grad():
+        got, ref = ray_march.sort_integrate(*args, **kw), ray_march.sort_integrate_plain(*args, **kw)
+        fwd_err = max_err(got, ref)
+        gb = ray_march.sort_integrate_backward(*args, *cot, **kw)
+        rb = ray_march.sort_integrate_backward_plain(*args, *cot, **kw)
+    torch.cuda.synchronize()
+    _check_finite("inversion K1", [*got, *gb])
+    bwd_err = rel_err(gb, rb)
+    if fwd_err > 1e-3 or bwd_err > 1e-2:
+        raise RuntimeError(f"inversion: K1 vs plain on a projector step's inputs {fwd_err} (limit "
+                           f"1e-3), backward / max|grad| {bwd_err} (limit 1e-2)")
+    k1 = {"fwd_err": fwd_err, "bwd_err": bwd_err, "dtype": str(args[1].dtype),
+          "shape": [list(args[1].shape), list(args[3].shape)],
+          "cot_max": [float(g.abs().max()) for g in cot]}
+    med = {k: statistics.median(v) for k, v in main["ms"].items()}
+    med["pti_jv_loc"] = statistics.median(join["ms"])
+    print(f"inversion: apps.run_pti.main, GeneratorConfig() bf16 snapshot, {INV_TARGETS} targets "
+          f"(512², G's render at a known w + 0.3 N(0,1)), {INV_PROJ_STEPS} projector + "
+          f"{INV_PTI_STEPS} PTI steps, --lpips-threshold 0 ({smi}): event ms per step median "
+          f"projector {med['projector']:.3f}, PTI {med['pti']:.3f} (each {[round(t, 3) for t in main['ms']['projector']]}, "
+          f"{[round(t, 3) for t in main['ms']['pti']]}); peak GiB {json.dumps({k: round(v, 3) for k, v in main['peak_gib'].items()})}; "
+          f"K1 (forward, backward) per projector step {sorted(set(main['launches']['projector']))}, "
+          f"per PTI step {sorted(set(main['launches']['pti']))}, per _save_viz "
+          f"{sorted(set(main['launches']['viz']))}; reconstruction MSE (start, end) "
+          f"{[(lab, round(a, 5), round(b, 5)) for lab, a, b in main['mse']]}; model_<name> "
+          f"reloaded by load_generator within {main['reload_gap']:.0f} uint8 level of _compare.png; "
+          f"wall {main_s:.1f} s", flush=True)
+    print(f"inversion: --join-view --use-locality --video (2 + {INV_JV_PTI_STEPS} steps): PTI step "
+          f"{med['pti_jv_loc']:.3f} ms median, peak {join['peak_gib']:.3f} GiB, K1 per PTI step "
+          f"{sorted(set(join['launches']['pti_jv_loc']))}, per _save_viz with the 60-frame orbit "
+          f"{join['launches']['viz_video']}; MSE {[(lab, round(a, 5), round(b, 5)) for lab, a, b in join['mse']]}; "
+          f"--e4e (E4eEncoder(1024) random init, pSp layout, opts.encoder_type): K1 as the plain "
+          f"run, {em.launches('projector')} / {em.launches('pti')} / {em.launches('viz')}; K1 on a "
+          f"projector step's captured inputs ({k1['dtype']} {k1['shape']}) vs plain max abs err "
+          f"{fwd_err:.3g} (limit 1e-3), its backward on the step's own cotangents (max "
+          f"{[round(v, 6) for v in k1['cot_max']]}) vs autograd through plain, max abs err / "
+          f"max|grad| {bwd_err:.3g} (limit 1e-2)", flush=True)
+    return {"main": main, "join": join, "k1": k1, "median_ms": med, "e4e_model": e4e_model,
+            "names": names}
+
+
+def write_e4e(path: str):
+    """E4eEncoder(1024, 'e4e') (18 rows, as the flagship's w+) with random
+    weights drawn on the card (convs N(0, 0.025²), EqualLinear N(0, 1), identity
+    BN, PReLU 0.25), saved in fp16 in the pSp layout with its latent_avg and
+    an opts Namespace naming Encoder4Editing. Returns the model (fp32, card)."""
+    import argparse
+
+    from ide3d_tpu_torch.models.arcface import reset_norms
+    from ide3d_tpu_torch.models.e4e import E4eEncoder
+
+    model = E4eEncoder(1024, "e4e").cuda().eval()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.ndim == 4:
+                p.copy_(torch.randn(p.shape, generator=gen, device="cuda") * 0.025)
+            elif name.endswith("linear.weight"):
+                p.copy_(torch.randn(p.shape, generator=gen, device="cuda"))
+            elif name.endswith("bias"):
+                p.zero_()
+        reset_norms(model)
+    sd = {f"encoder.{k}": v.half().cpu() for k, v in model.state_dict().items()}
+    torch.save({"state_dict": sd, "latent_avg": torch.linspace(-0.5, 0.5, 512),
+                "opts": argparse.Namespace(encoder_type="Encoder4Editing")}, path)
+    with torch.no_grad():  # the weights as the file holds them
+        for k, v in model.state_dict().items():
+            v.copy_(sd[f"encoder.{k}"].float())
+    return model
+
+
+@contextlib.contextmanager
+def float64_render():
+    """Inside, an fp32 copy of G made here computes in float64 on the CPU from
+    end to end: the "float32" compute dtype maps to float64, and the port's
+    casts to float32 (`.float()`, the FIR filters' `as_tensor`, the rays'
+    default dtype) keep float64. The third witness of the fp32 card-against-CPU
+    gradients."""
+    from ide3d_tpu_torch.models import blocks
+
+    real = (blocks.DTYPES["float32"], torch.Tensor.float, torch.as_tensor, torch.get_default_dtype())
+
+    def keep64(t, *a, **kw):
+        return t if t.dtype == torch.float64 else real[1](t, *a, **kw)
+
+    def as_tensor(data, dtype=None, device=None):
+        if dtype == torch.float32 and isinstance(data, torch.Tensor) and data.dtype == torch.float64:
+            dtype = torch.float64
+        return real[2](data, dtype=dtype, device=device)
+
+    blocks.DTYPES["float32"], torch.Tensor.float, torch.as_tensor = torch.float64, keep64, as_tensor
+    torch.set_default_dtype(torch.float64)
+    try:
+        yield
+    finally:
+        blocks.DTYPES["float32"], torch.Tensor.float, torch.as_tensor = real[:3]
+        torch.set_default_dtype(real[3])
+
+
+def inversion_grads(G, target, c, runs, strength: float = 0.1) -> dict:
+    """One projector step's gradients in w+ and the noise buffers, and one PTI
+    step's in the tuned synthesis parameters, of copies of G (noise strengths
+    `strength`) on the same inputs, for each (label, device, dtype, context)
+    of `runs` (TF32 off; the context, e.g. float64_render, is entered around
+    the run). The first run records its importance depths (detached) and the
+    others replay them, so that all differentiate one function. Returns
+    {label: {"w" | "noise" | "pti": [float64 CPU tensors]}}."""
+    from ide3d_tpu_torch.render import renderer
+    from ide3d_tpu_torch.train import pti
+
+    rs = np.random.RandomState(7)
+    out, depths = {}, []
+    real_pdf = renderer.sample_pdf
+
+    def recorded(*a, **kw):
+        depths.append(real_pdf(*a, **kw))
+        return depths[-1]
+
+    def replayed(*a, **kw):
+        return depths[replayed.i].to(a[0].device, a[0].dtype)
+
+    try:
+        for i, (label, dev, dtype, context) in enumerate(runs):
+            renderer.sample_pdf = replayed if i else recorded
+            replayed.i = 0
+            with context():
+                Gx = fp32_copy(G, dev).to(dtype)
+                with torch.no_grad():
+                    for name, p in Gx.named_parameters():
+                        if name.endswith("noise_strength"):
+                            p.fill_(strength)
+                if not i:
+                    w0 = (Gx.mapping.w_avg[None, None].repeat(1, Gx.num_ws, 1).double()
+                          + torch.as_tensor(rs.randn(1, Gx.num_ws, Gx.w_dim) * 0.3))
+                    shapes = dict(Gx.synthesis.named_parameters())
+                    noise0 = {k: torch.as_tensor(rs.randn(*shapes[k].shape))
+                              for k in pti.noise_buffer_paths(Gx.synthesis)}
+                w = w0.to(dev, dtype).requires_grad_(True)
+                noise = {k: v.to(dev, dtype).requires_grad_(True) for k, v in noise0.items()}
+                tgt, cc = target.to(dev, dtype), c.to(dev, dtype)
+                with torch.enable_grad():
+                    feats = [f.detach() for f in pti.default_pyramid_feats(tgt)]
+                    loss, _ = pti.projector_loss(Gx, w, noise, cc, feats, pti.ProjectorConfig())
+                    gp = torch.autograd.grad(loss, [w, *noise.values()])
+                    replayed.i = 1
+                    params = pti.trainable_synthesis_params(Gx)
+                    loss2, _ = pti.pti_loss(Gx, Gx, w.detach(), tgt, cc, pti.PtiConfig(),
+                                            pti.pyramid_distance)
+                    gt = torch.autograd.grad(loss2, params)
+                out[label] = {k: [g.detach().double().cpu() for g in v]
+                              for k, v in (("w", gp[:1]), ("noise", gp[1:]), ("pti", gt))}
+                for k, v in out[label].items():
+                    _check_finite(f"inversion grads {label} {k}", v)
+                del Gx
+    finally:
+        renderer.sample_pdf = real_pdf
+    if len(depths) != 2:
+        raise RuntimeError(f"inversion: {len(depths)} importance draws recorded, want 2")
+    return out
+
+
+def grad_gap(got: dict, ref: dict) -> dict:
+    """max |got - ref| / max |ref| in float64 for each gradient, and the w+
+    gradient's by row of w+."""
+    gap = {k: max(float((g - r).abs().max()) for g, r in zip(got[k], ref[k]))
+           / max(float(r.abs().max()) for r in ref[k]) for k in ("w", "noise", "pti")}
+    rows = (got["w"][0] - ref["w"][0]).abs()[0].amax(dim=1) / ref["w"][0].abs().max()
+    return {**gap, "w_rows": [float(f"{x:.3g}") for x in rows]}
+
+
+def inversion_card_vs_cpu(G, target, c, strength: float = 0.1) -> dict:
+    """An fp32 copy of G, noise strengths 0.1 (the noise takes part), card
+    against CPU (inversion_grads), each gradient relative to its largest
+    value: the card's fp32, with cuDNN and with PyTorch's own convolutions,
+    against the CPU's fp32 (limits INV_W_TOL for w+, INV_GRAD_TOL for the
+    rest), and every fp32 run against the CPU in float64 (float64_render), the
+    third witness that says which side carries a gap."""
+    fp32, cpu = contextlib.nullcontext, torch.float32
+    runs = [("cpu32", "cpu", cpu, fp32), ("cpu64", "cpu", torch.float64, float64_render),
+            ("card32", "cuda", cpu, fp32),
+            ("card32_native", "cuda", cpu, lambda: torch.backends.cudnn.flags(enabled=False))]
+    g = inversion_grads(G, target, c, runs, strength)
+    err = {f"{a}_vs_{b}": grad_gap(g[a], g[b]) for a, b in (
+        ("card32", "cpu32"), ("card32_native", "cpu32"), ("card32", "cpu64"),
+        ("card32_native", "cpu64"), ("cpu32", "cpu64"))}
+    over = {f"{pair} {k}": e[k] for pair, e in err.items() for k in ("w", "noise", "pti")
+            if e[k] > (INV_W_TOL if pair.startswith("card32_vs") and k == "w" else INV_GRAD_TOL)}
+    if over:
+        raise RuntimeError(f"inversion: fp32 gradients / max|grad| over their limits {over} (w+ "
+                           f"of the card with cuDNN {INV_W_TOL}, the rest {INV_GRAD_TOL}): {err}")
+    return err
+
+
+def write_loss_nets(root: str) -> dict:
+    """Random-init weight files for the encoder trainer: BiSeNet(20) and
+    ArcFace IR-SE50 (the JAX packages' inits), the VGG19 trunk and the LPIPS
+    trunk + lin weights (numpy RandomState draws, N(0, 0.05²) convs)."""
+    import os
+
+    from ide3d_tpu_torch.metrics.features import VGG16Features
+    from ide3d_tpu_torch.metrics.lpips import LPIPS
+    from ide3d_tpu_torch.models.arcface import ArcFaceIRSE50
+    from ide3d_tpu_torch.models.bisenet import BiSeNet
+
+    def trunk(module, prefixes, seed):
+        rs = np.random.RandomState(seed)
+        return {k: torch.as_tensor(rs.randn(*v.shape).astype(np.float32)
+                                   * (0.05 if v.ndim == 4 else 0.0 if k.endswith("bias") else 0.1))
+                for k, v in module.state_dict().items() if k.startswith(prefixes)}
+
+    lp = trunk(LPIPS(), ("vgg.features.", "lin"), 2)
+    lp.update({k: v.abs() for k, v in lp.items() if k.startswith("lin")})
+    files = {"bisenet": BiSeNet(20).init().state_dict(),
+             "vgg-weights": trunk(VGG16Features(cfg_name="vgg19"), ("features.",), 1),
+             "lpips-weights": lp, "arcface-weights": ArcFaceIRSE50().init().state_dict()}
+    out = {}
+    for name, sd in files.items():
+        out[name] = os.path.join(root, f"{name}.pth")
+        torch.save(sd, out[name])
+    return out
+
+
+def inversion_encoder(snap: str, root: str, nets: dict, smi: str) -> dict:
+    """apps.train_hybrid_encoder.main at --batch 4 for 3 steps on 8 labelled
+    512² images with seg masks, both branches, every loss network from its
+    file: K1 per step, finite stats, event ms per step, peak; then --resume of
+    its snapshot restores E, Adam and the step."""
+    import os
+
+    from ide3d_tpu_torch.apps import train_hybrid_encoder
+    from ide3d_tpu_torch.io.checkpoint import load_checkpoint
+
+    imgs, segs = write_dataset(os.path.join(root, "enc_data"), 8, INV_RES)
+    argv = ["--network", snap, "--data", imgs, "--seg", segs, "--batch", str(ENC_BATCH),
+            "--snap", str(ENC_STEPS), "--max-steps", str(ENC_STEPS), "--device", "cuda"]
+    for name, path in nets.items():
+        argv += [f"--{name}", path]
+    meter = StepMeter()
+    restore = _metered(meter)
+    torch.cuda.reset_peak_memory_stats()
+    meter.label = "encoder"
+    try:
+        t0 = time.perf_counter()
+        state = train_hybrid_encoder.main(argv + ["--outdir", os.path.join(root, "enc")])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        meter.label = None
+        restore()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    meter.check({"encoder": INV_LAUNCHES["encoder"]}, "train_hybrid_encoder")
+    if len(meter.launches("encoder")) != ENC_STEPS:
+        raise RuntimeError(f"train_hybrid_encoder: {len(meter.launches('encoder'))} steps counted")
+    with open(os.path.join(root, "enc", "stats.jsonl")) as f:
+        line = json.loads(f.readline())
+    want = {"loss_ws", "loss_gen_l2", "loss_gen_entropy", "loss_cycle", "loss_real_l2", "loss_vgg",
+            "loss_lpips", "loss_id", "loss_real_entropy", "loss_real_cycle", "loss_total"}
+    if not want <= set(line) or not all(np.isfinite(line[k]) for k in want):
+        raise RuntimeError(f"train_hybrid_encoder: stats line {line}")
+    snap_e = os.path.join(root, "enc", f"encoder-{ENC_STEPS:08d}")
+    saved, meta = load_checkpoint(snap_e)
+    resumed = train_hybrid_encoder.main(argv + ["--outdir", os.path.join(root, "enc_r"),
+                                                "--resume", snap_e])
+    _same_state(saved["E"], resumed.E.state_dict(), "E")
+    _same_state(saved["opt_e"], resumed.opt_e.state_dict(), "opt_e")
+    _same_state(state.E.state_dict(), resumed.E.state_dict(), "E")
+    if resumed.step != ENC_STEPS or meta["step"] != ENC_STEPS:
+        raise RuntimeError(f"train_hybrid_encoder --resume: step {resumed.step}, meta {meta}")
+    ms = meter.step_ms("encoder")
+    print(f"inversion: apps.train_hybrid_encoder.main --batch {ENC_BATCH}, {ENC_STEPS} steps, "
+          f"HybridEncoder(512, 10, 8) fp32 + GeneratorConfig() bf16, both branches, random-init "
+          f"--bisenet --vgg-weights --lpips-weights --arcface-weights ({smi}): step ms after the "
+          f"first {[round(t, 3) for t in ms]}, peak {peak:.3f} GiB, K1 (forward, backward) per step "
+          f"{meter.launches('encoder')}; losses at step 0 "
+          f"{json.dumps({k: float(f'{line[k]:.5g}') for k in sorted(want)})}; wall {run_s:.1f} s "
+          f"(network files and init included); --resume restored E, Adam and step {resumed.step}",
+          flush=True)
+    return {"launches": meter.launches("encoder"), "ms": ms, "median_ms": statistics.median(ms),
+            "peak_gib": peak, "snapshot": snap_e}
+
+
+def inversion_clis(snap: str, imgs: str, masks: str, root: str, names: list, enc: str,
+                   nets: dict) -> dict:
+    """finetune_hybrid_encoder (3 steps), latent_creator (2 images, 5 steps) and
+    calc_losses_on_images l2,lpips,id (targets against run_pti's reconstructions)."""
+    import os
+
+    import PIL.Image
+
+    from ide3d_tpu_torch.apps import calc_losses_on_images, finetune_hybrid_encoder, latent_creator
+
+    n0 = names[0]
+    finetune_hybrid_encoder.main([
+        "--network", snap, "--encoder", enc, "--img", os.path.join(imgs, f"{n0}.png"),
+        "--mask", os.path.join(masks, f"{n0}.png"), "--target-code",
+        os.path.join(root, "pti", f"{n0}.npz"), "--steps", "3", "--outdir",
+        os.path.join(root, "ft"), "--device", "cuda"])
+    latent_creator.main(["--network", snap, "--images", imgs, "--steps", "5", "--outdir",
+                         os.path.join(root, "latents"), "--device", "cuda"])
+    for n in names:
+        if not np.isfinite(np.load(os.path.join(root, "latents", f"{n}.npz"))["ws"]).all():
+            raise RuntimeError(f"latent_creator: non-finite latent for {n}")
+    recon = os.path.join(root, "recon")
+    os.makedirs(recon)
+    for n in names:
+        pair = np.asarray(PIL.Image.open(os.path.join(root, "pti", f"{n}_compare.png")))
+        PIL.Image.fromarray(pair[:, pair.shape[1] // 2:]).save(os.path.join(recon, f"{n}.png"))
+    res = calc_losses_on_images.main([
+        "--mode", "l2,lpips,id", "--data-a", imgs, "--data-b", recon, "--lpips-weights",
+        nets["lpips-weights"], "--arcface-weights", nets["arcface-weights"], "--device", "cuda"])
+    if set(res) != {"l2", "lpips", "id"} or not all(np.isfinite(v["mean"]) for v in res.values()):
+        raise RuntimeError(f"calc_losses_on_images: {res}")
+    return res
+
+
+def face_nets_card_vs_cpu(imgs: str, e4e_model) -> dict:
+    """ArcFace embed_faces (2 targets), BiSeNet (1 target) and e4e (both
+    variants, one 256² target) as fp32 copies, card against CPU, TF32 off; the
+    IR-SE50 convs at half the JAX init's std (at its std the body's activations
+    grow ~1e6-fold and fp32 rounding takes over). max abs err / max|output|."""
+    import copy
+    import os
+
+    from ide3d_tpu_torch.apps.infer_hybrid_encoder import load_image
+    from ide3d_tpu_torch.metrics.features import resize
+    from ide3d_tpu_torch.models.arcface import ArcFaceIRSE50
+    from ide3d_tpu_torch.models.bisenet import BiSeNet
+
+    x = torch.as_tensor(np.stack([load_image(os.path.join(imgs, f), INV_RES)
+                                  for f in sorted(os.listdir(imgs))]))
+    arc = ArcFaceIRSE50().init()
+    with torch.no_grad():
+        for p in arc.parameters():
+            if p.ndim == 4:
+                p.mul_(0.5)
+    nets = {"arcface": (arc, lambda m, t: m.embed_faces(t), x),
+            "bisenet": (BiSeNet(20).init(), lambda m, t: m(t), x[:1])}
+    for v in ("e4e", "gradual"):
+        m = copy.deepcopy(e4e_model).cpu()
+        m.variant = v
+        nets[f"e4e_{v}"] = (m, lambda m, t: m(t), resize(x[:1], 256))
+    err = {}
+    for name, (m, fn, inp) in nets.items():
+        with torch.no_grad():
+            ref = fn(m.eval(), inp)
+            got = fn(m.cuda(), inp.cuda()).cpu()
+        _check_finite(f"{name} card", [got])
+        err[name] = float((got - ref).abs().max() / ref.abs().max())
+        m.cpu()
+    if max(err.values()) > FACE_TOL:
+        raise RuntimeError(f"face nets fp32 cuda vs cpu / max|output| {err} (limit {FACE_TOL})")
+    return err
+
+
+def phase_inversion(smi: str) -> dict:
+    import os
+    import tempfile
+
+    from ide3d_tpu_torch.apps import common
+    from ide3d_tpu_torch.apps.infer_hybrid_encoder import load_image
+    from ide3d_tpu_torch.models.generator import GeneratorConfig
+    from ide3d_tpu_torch.render.camera import CANONICAL_POSE_25
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        snap = os.path.join(root, "flagship")
+        write_snapshot(snap, GeneratorConfig(), seed=0)
+        G = common.load_generator(snap, "cuda")
+        imgs, masks = write_targets(G, root, INV_TARGETS)
+        inv = inversion_pti(snap, imgs, root, smi)
+        target = torch.as_tensor(load_image(os.path.join(imgs, f"{inv['names'][0]}.png"),
+                                            INV_RES))[None]
+        grads = inversion_card_vs_cpu(G, target, torch.as_tensor(CANONICAL_POSE_25)[None])
+        del G
+        nets = write_loss_nets(root)
+        enc = inversion_encoder(snap, root, nets, smi)
+        clis = inversion_clis(snap, imgs, masks, root, inv["names"], enc["snapshot"], nets)
+        faces = face_nets_card_vs_cpu(imgs, inv.pop("e4e_model"))
+    med = inv["median_ms"]
+    arith = 450 * med["projector"] + 350 * med["pti"]
+    gaps = "; ".join(f"{pair}: w+ {e['w']:.3g} (rows 0-4 {e['w_rows'][:5]}), noise "
+                     f"{e['noise']:.3g}, PTI {e['pti']:.3g}" for pair, e in grads.items())
+    print(f"inversion: fp32 copies of the flagship, noise strengths 0.1, the CPU's importance "
+          f"depths on every run, max abs err / max|grad| of the projector step's w+ and noise "
+          f"gradients and the PTI step's (card32: cuDNN convolutions, card32_native: PyTorch's "
+          f"own, cpu64: the CPU in float64; limits {INV_W_TOL:g} for card32's w+, "
+          f"{INV_GRAD_TOL:g} for the rest): {gaps}; ArcFace / BiSeNet / e4e fp32 cuda vs cpu "
+          f"max abs err / max|output| {json.dumps({k: float(f'{v:.3g}') for k, v in faces.items()})} "
+          f"(limit {FACE_TOL:g}); finetune_hybrid_encoder 3 steps, latent_creator 2 images x 5 "
+          f"steps, calc_losses_on_images {json.dumps(clis)}; arithmetic, not measured: a default "
+          f"run_pti (450 projector + 350 PTI steps) at these medians = {arith / 1e3:.1f} s a "
+          f"target; phase 10 wall {time.perf_counter() - t0:.1f} s ({smi})", flush=True)
+    return {**inv, "grads": grads, "encoder": enc, "faces": faces, "arith_s": arith / 1e3}
+
+
+def inversion_launches(inv: dict, i: int) -> dict:
+    """Phase 10's launches of K1 (i = 0) or its backward (i = 1): per step of
+    each loop and per _save_viz (all equal; checked), and the totals."""
+    per = {"projector_step": inv["main"]["launches"]["projector"],
+           "pti_step": inv["main"]["launches"]["pti"], "save_viz": inv["main"]["launches"]["viz"],
+           "pti_step_join_view_locality": inv["join"]["launches"]["pti_jv_loc"],
+           "save_viz_video": inv["join"]["launches"]["viz_video"],
+           "encoder_step": inv["encoder"]["launches"]}
+    out = {k: v[0][i] for k, v in per.items()}
+    out["run_pti_total"] = sum(n[i] for k in ("projector", "pti", "viz")
+                               for n in inv["main"]["launches"][k])
+    out["encoder_total"] = sum(n[i] for n in inv["encoder"]["launches"])
+    return out
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
@@ -1490,6 +2222,7 @@ def main() -> None:
     tr = phase_train(smi.splitlines()[0])
     off = phase_offline(smi.splitlines()[0])
     met = phase_metrics(smi.splitlines()[0])
+    inv = phase_inversion(smi.splitlines()[0])
     main_path, b1 = k["timing"][3], k["timing"][1]  # the frame runs K1 at B=3
     kb = tr["k1_backward"]
     print(json.dumps({"kernels": [{
@@ -1500,7 +2233,7 @@ def main() -> None:
         "launches": f["launches"],
         "max_abs_err": max(k["max_abs_err"], f["frame_err"], off["mesh"]["k1_err"],
                            *(v["k1_err"] for v in off["video"].values()),
-                           *met["counted"]["k1_err"].values()),
+                           *met["counted"]["k1_err"].values(), inv["k1"]["fwd_err"]),
         "ms": main_path["ms"],
         "plain_ms": main_path["plain_ms"],
         "eager_ms": main_path["eager_ms"],
@@ -1521,6 +2254,8 @@ def main() -> None:
         "mesh_max_abs_err": off["mesh"]["k1_err"],
         "metrics_launches": {k: v["launches"] for k, v in met["counted"]["per"].items()},
         "metrics_max_abs_err": met["counted"]["k1_err"],
+        "inversion_launches": inversion_launches(inv, 0),
+        "inversion_max_abs_err": inv["k1"]["fwd_err"],
     }, {
         "name": "sort_integrate_backward",
         "route": "cuda",
@@ -1528,7 +2263,7 @@ def main() -> None:
         "replaces": "ide3d_tpu/ops/pallas/ray_march.py:121",
         "autodiff_of": "ide3d_tpu/render/integration.py:85",
         "launches": sum(n[1] for n in tr["full"]["launches"]),
-        "max_abs_err": kb["max_abs_err"],
+        "max_abs_err": max(kb["max_abs_err"], inv["k1"]["bwd_err"]),
         "max_abs_err_is": "relative to max|grad|",
         "ms": kb["ms"],
         "plain_ms": kb["plain_ms"],
@@ -1541,6 +2276,9 @@ def main() -> None:
         "fwd_bwd_bound_ms": kb["fwd_bwd_bound_ms"],
         "train_step": {k: tr["full"][k] for k in ("median_ms", "r1_step_ms", "warm_r1_step_ms",
                                                   "peak_gib", "imgs_per_s")},
+        "inversion_launches": inversion_launches(inv, 1),
+        "inversion_max_abs_err": inv["k1"]["bwd_err"],
+        "inversion_step_ms": {**inv["median_ms"], "encoder": inv["encoder"]["median_ms"]},
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -8,16 +8,21 @@ module layout and names so that each module's counterpart is easy to find:
            PyTorch version)
   render/  camera, integration (compositing + sample_pdf), TriplaneRenderer
   models/  layers, mapping, blocks, generator (Ide3dGenerator), encoder,
-           discriminator
-  train/   gan (the GAN train step, lazy R1), augment (ADA)
+           discriminator, arcface (IR-SE50), bisenet, e4e
+  train/   gan (the GAN train step, lazy R1), augment (ADA), pti (the w+
+           projector and pivotal tuning), encoder (the hybrid-encoder step),
+           losses
   parallel/ stats (StatsAccumulator)
   data/    dataset (image + seg + camera label folders, infinite_loader)
   io/      from_jax: the JAX parameter tree -> this package's modules;
            checkpoint: torch-native train-state snapshots; torch_import:
-           reference .pkl checkpoints -> this package's G, D and E
+           reference .pkl checkpoints -> this package's G, D and E, e4e .pt
+           files read without running their pickles, BiSeNet weights
   utils/   seg (the 19-class palette), marching (marching tetrahedra)
   apps/    gen_images, painter, web_ui, train_gan, gen_videos,
-           extract_shapes, render_mesh, avg_spectra
+           extract_shapes, render_mesh, avg_spectra, calc_metrics, run_pti,
+           latent_creator, infer_hybrid_encoder, train_hybrid_encoder,
+           finetune_hybrid_encoder, calc_losses_on_images
   csrc/    CUDA C++ sources, compiled with nvcc at first use (see _build.py)
 
 Inside the conv stacks activations are NCHW and conv weights OIHW; the public

@@ -131,3 +131,28 @@ def load_generator(network: str, device: torch.device | str = "cuda") -> Ide3dGe
     G = Ide3dGenerator(cfg)
     G.load_state_dict(state["G_ema"] if "G_ema" in state else state)
     return G.to(device).eval()
+
+
+def make_e4e_pivot_fn(G: Ide3dGenerator, ckpt: str, variant: str = "auto",
+                      device: torch.device | str = "cuda"):
+    """(pivot, report): pivot(img [B,H,W,3] in [-1,1]) -> w+ [B, G.num_ws, w_dim]
+    through the e4e/pSp checkpoint `ckpt` (models/e4e.load_e4e). The image is
+    resized to the encoder's 256² input (jax.image.resize's antialiased
+    bilinear) and the checkpoint's latent_avg is added; the e4e decoder's rows
+    are cut to G's num_ws, or the last row repeated up to it."""
+    from ..metrics.features import resize
+    from ..models.e4e import load_e4e, pivot_from_image
+
+    model, latent_avg, report = load_e4e(ckpt, variant=variant)
+    model = model.to(device).eval().requires_grad_(False)
+    latent_avg = None if latent_avg is None else latent_avg.to(device)
+    num_ws = G.num_ws
+
+    @torch.no_grad()
+    def pivot(img: torch.Tensor) -> torch.Tensor:
+        w = pivot_from_image(model, latent_avg, resize(img, 256))
+        if w.shape[1] < num_ws:
+            w = torch.cat([w, w[:, -1:].expand(-1, num_ws - w.shape[1], -1)], dim=1)
+        return w[:, :num_ws]
+
+    return pivot, report

@@ -2,10 +2,12 @@
 
 from .torch_import import (
     ImportReport,
+    import_bisenet,
     import_discriminator,
     import_encoder,
     import_generator,
     load_network_pkl,
     load_pickle_tensors,
+    load_torch_file_stubbed,
     pickle_payload_to_state_dicts,
 )

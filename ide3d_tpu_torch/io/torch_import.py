@@ -18,6 +18,9 @@ architecture inference:
     generator: `vb_ref_compat=True, raw_head="slice"`) and load the tensors by
     name. Each returns (module on `device`, ImportReport).
   * `load_network_pkl(path)` does all of that for every entry of a pickle.
+  * `load_torch_file_stubbed(path)` reads a torch.save (zip) file, such as an
+    e4e checkpoint with its pickled `opts`, through the same stub unpickler;
+    `import_bisenet(path)` loads `segNet-20Class.pth` (weights_only=True).
 
 The reference state dict is already in the port's layout (OIHW convs,
 [out, in] FCs, [C, H, W] consts), so tensors map straight onto the port's
@@ -36,6 +39,7 @@ import dataclasses
 import io
 import pickle
 import re
+import zipfile
 from typing import Dict, Optional, Union
 
 import numpy as np
@@ -100,6 +104,55 @@ def load_pickle_tensors(path: str):
     module docstring)."""
     with open(path, "rb") as f:
         return _TensorStubUnpickler(f).load()
+
+
+# The storage classes a torch.save file names for its tensors' storages.
+_STORAGE_DTYPES = {
+    "FloatStorage": torch.float32, "DoubleStorage": torch.float64, "HalfStorage": torch.float16,
+    "BFloat16Storage": torch.bfloat16, "LongStorage": torch.int64, "IntStorage": torch.int32,
+    "ShortStorage": torch.int16, "CharStorage": torch.int8, "ByteStorage": torch.uint8,
+    "BoolStorage": torch.bool,
+}
+
+
+def load_torch_file_stubbed(path: str):
+    """The object graph of a torch.save file (the zip format) read by the stub
+    unpickler: tensors come back as tensors (storages read from the zip's
+    records), every class outside the allow-list as a dict-like stub of its
+    pickled state (an argparse Namespace's fields as dict items). Nothing from
+    the pickle is executed, unlike torch.load(weights_only=False)."""
+    with zipfile.ZipFile(path) as zf:
+        pkl = [n for n in zf.namelist() if n == "data.pkl" or n.endswith("/data.pkl")]
+        if len(pkl) != 1:
+            raise ValueError(f"{path}: not a torch.save zip file (found {len(pkl)} data.pkl)")
+        root = pkl[0][: -len("data.pkl")]
+        storages = {}
+
+        class _ZipUnpickler(_TensorStubUnpickler):
+            def persistent_load(self, pid):
+                kind, storage_type, key, _location, _numel = pid
+                name = getattr(storage_type, "_name", "")
+                if kind != "storage" or name not in _STORAGE_DTYPES:
+                    raise pickle.UnpicklingError(f"{path}: unsupported persistent id {pid!r}")
+                if key not in storages:
+                    dtype = _STORAGE_DTYPES[name]
+                    raw = bytearray(zf.read(f"{root}data/{key}"))
+                    flat = torch.frombuffer(raw, dtype=dtype) if raw else torch.empty(0, dtype=dtype)
+                    storages[key] = torch.storage.TypedStorage(
+                        wrap_storage=flat.untyped_storage(), dtype=dtype, _internal=True)
+                return storages[key]
+
+        return _ZipUnpickler(io.BytesIO(zf.read(pkl[0]))).load()
+
+
+def import_bisenet(path: str, device: Union[torch.device, str] = "cuda"):
+    """segNet-20Class.pth (a state dict, read with weights_only=True) ->
+    BiSeNet(20) on `device`, in eval mode. The checkpoint's auxiliary heads and
+    BN counters are not used; a tensor the module needs and the file lacks raises."""
+    from ..metrics.features import load_state_dict_file
+    from ..models.bisenet import BiSeNet
+
+    return load_state_dict_file(BiSeNet(20), path).to(device).eval()
 
 
 def _module_named_tensors(obj, prefix: str, out: Dict[str, np.ndarray]) -> None:

@@ -144,19 +144,22 @@ class VGG16Features(nn.Module):
 
 
 class FrozenBN(nn.Module):
-    """Inference BatchNorm (eps 1e-3) with torchvision's four tensor names."""
+    """Inference BatchNorm over dim 1 (NCHW maps or [B, C] vectors) with
+    torchvision's four tensor names; eps 1e-3 (Inception) unless given."""
 
-    def __init__(self, c: int):
+    def __init__(self, c: int, eps: float = 1e-3):
         super().__init__()
+        self.eps = eps
         self.weight = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        scale = self.weight * torch.rsqrt(self.running_var + 1e-3)
+        scale = self.weight * torch.rsqrt(self.running_var + self.eps)
         shift = self.bias - self.running_mean * scale
-        return x * scale[:, None, None] + shift[:, None, None]
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        return x * scale.view(shape) + shift.view(shape)
 
 
 class BasicConv2d(nn.Module):
@@ -327,20 +330,22 @@ class InceptionV3(nn.Module):
 # ----------------------------------------------------------------------- factory
 
 
-def load_state_dict_file(module: nn.Module, path: str) -> nn.Module:
+def load_state_dict_file(module: nn.Module, path: str, prefixes: Optional[tuple] = None) -> nn.Module:
     """Load a torch state_dict file (torchvision names) into `module`, read with
     weights_only=True. Keys the module does not have (`num_batches_tracked`,
     torchvision's fc / AuxLogits / classifier.3 / classifier.6 heads) are
     skipped, as the JAX package's state_dict_to_tree leaves them unused; a
-    tensor the module needs and the file lacks raises."""
+    tensor the module needs and the file lacks raises. With `prefixes` only the
+    module's tensors under them are needed and loaded (e.g. a VGG trunk used for
+    its feature maps alone: ("features.",)); the others keep their values."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(sd, dict) and isinstance(sd.get("state_dict"), dict):
         sd = sd["state_dict"]
-    own = module.state_dict()
+    own = [k for k in module.state_dict() if prefixes is None or k.startswith(tuple(prefixes))]
     missing = sorted(set(own) - set(sd))
     if missing:
         raise KeyError(f"{path}: no tensor for {missing[:8]}{' ...' if len(missing) > 8 else ''}")
-    module.load_state_dict({k: sd[k] for k in own})
+    module.load_state_dict({k: sd[k] for k in own}, strict=prefixes is None)
     return module
 
 

@@ -9,7 +9,8 @@ input goes through the LPIPS scaling layer (x - shift) / scale and into the
 trunk through v / 127.5 - 1 (VGG16Features.feature_maps applies (v + 1) * 127.5).
 `lin{i}.weight` keeps the JAX layout (C,), so io/from_jax bridges a JAX LPIPS
 tree (`vgg` + `lin0..lin4`) as it is. The weights come from such a tree or a
-state dict (`load_state_dict`); the module is built without them.
+state dict (`load_state_dict`); the module is built without them, and
+`init()` gives the uncalibrated distance of the JAX package's `LPIPS.init`.
 """
 
 from __future__ import annotations
@@ -41,6 +42,19 @@ class LPIPS(nn.Module):
             setattr(self, f"lin{i}", _ChannelWeight(c))
         self.register_buffer("shift", torch.tensor(_SHIFT), persistent=False)
         self.register_buffer("scale", torch.tensor(_SCALE), persistent=False)
+
+    @torch.no_grad()
+    def init(self) -> "LPIPS":
+        """The JAX package's VGG16 init (numpy RandomState(0), the same trunk)
+        and lin weights |N(0, 1)| * 0.1 drawn from a CPU torch.Generator seeded
+        0 (the JAX package draws them from jax.random, so they differ).
+        Returns self."""
+        self.vgg.init()
+        gen = torch.Generator().manual_seed(0)
+        for i in range(len(_TAP_CHANNELS)):
+            w = getattr(self, f"lin{i}").weight
+            w.copy_(torch.randn(w.shape, generator=gen).abs() * 0.1)
+        return self
 
     def _taps(self, x: torch.Tensor) -> list:
         v = (x - self.shift.to(x.dtype)) / self.scale.to(x.dtype)

@@ -27,7 +27,16 @@ LABEL_LIST = {
     "cloth": 18,
 }
 
+# BiSeNet's 20 class ids -> the 19 IDE-3D ids (dnnlib/seg_tools.py:63 of IDE-3D).
+BISENET_REMAP = np.array(
+    [0, 1, 6, 7, 4, 5, 2, 2, 10, 11, 12, 8, 9, 15, 3, 17, 16, 18, 13, 14], dtype=np.int64)
+
 NUM_CLASSES = 19
+
+
+def id_remap(seg: torch.Tensor) -> torch.Tensor:
+    """BiSeNet class ids [...] -> IDE-3D class ids [...] (int64)."""
+    return torch.as_tensor(BISENET_REMAP, device=seg.device)[seg.long()]
 
 
 def mask2onehot(mask: torch.Tensor, num_classes: int = NUM_CLASSES) -> torch.Tensor:
