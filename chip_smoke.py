@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one CUDA card: build, check and time K1,
 then drive the frame, the Painter, training, offline generation, the
-metric suite and inversion at the flagship width.
+metric suite, inversion and latent editing at the flagship width.
 
     python3 chip_smoke.py
 
@@ -107,6 +107,29 @@ Phases, one line each; any failure ends the run with a non-zero exit:
                (both variants) as fp32 copies, card against CPU (<= 1e-5 x
                max|output|). Event ms per step and peaks; the arithmetic of a
                default run_pti (450 + 350 steps), labelled as arithmetic.
+ 11. editing - the flagship bf16 snapshot, a random-init full-width CLIP
+               ViT-B/32 written by the port's CLIP (OpenAI layout), a
+               synthetic BPE vocab and a random-init IR-SE50 file; timed runs
+               at cuDNN TF32 on: apps.train_styleclip_mapper.main at batch 2
+               with --ir-se50 (6 steps, K1 (2, 1) a step) and without (3 steps,
+               (1, 1)), styleclip_edit on its mapper at 3 yaws (K1 once a yaw,
+               the edited frame within 1 uint8 level of G.synthesis at the
+               CLI's batch), train_nada (4 steps, geometry frozen: (2, 0); 2
+               steps --train-geometry: (2, 1); every frozen parameter
+               bit-identical, the trained ones moved, the saved G reloaded),
+               optimize_latent (5 steps, (1, 1)); K1 on a mapper step's inputs
+               against plain (bf16 <= 1e-3) and its backward on the step's own
+               cotangents (<= 1e-2 x max|grad|); VizRenderer at 48+48: 3
+               uncached and 13 cached renders of every type (K1 once each,
+               generate_planes once an identity), capture_layers, the page and
+               /render through VizServer.handle, K1 at the render's inputs
+               against plain; infer_face_animation on 8 masks with --orbit (K1
+               twice a frame), converter_log_to_video on a recorded 4-edit
+               session (K1 2, 1, 2, 1); run_pti + edit_comparison and a short
+               experiment_runner; fp32 copies with TF32 off, card against CPU:
+               CLIP's image and text embeddings (<= 1e-5 x max), a mapper
+               step's and a NADA step's gradients (<= 1e-4 x max|grad|). Event
+               ms per step and per render, peaks.
 Then one JSON line with the kernels, and last {"ok": true, "device": {...}}.
 In that line K1's `ms` and `plain_ms` are device times per call at B=3 from
 the CUDA graphs; `eager_ms` is the time between CUDA events around one eager
@@ -119,7 +142,12 @@ largest of phases 3, 5, 8, 9 and 10 (`metrics_max_abs_err` phase 9's,
 `inversion_max_abs_err` phase 10's). The backward's `ms` is its graph time at
 B=4, `plain_ms` the plain backward's event time, `launches` phase 7's steps,
 `inversion_launches` phase 10's, `max_abs_err` relative to max|grad| (the
-largest of phases 7 and 10), `inversion_step_ms` phase 10's medians.
+largest of phases 7, 10 and 11), `inversion_step_ms` phase 10's medians.
+Phase 11 adds `editing_launches` (per step of each editing loop; for K1 also
+per styleclip_edit yaw, face-animation frame, log-replay entry and the
+edit_comparison run) and `viz_launches` to K1's entry, `editing_max_abs_err`
+to both, `editing_step_ms` to the backward's; K1's `max_abs_err` also takes
+phase 11's.
 """
 
 from __future__ import annotations
@@ -2211,6 +2239,546 @@ def inversion_launches(inv: dict, i: int) -> dict:
     return out
 
 
+EDIT_MAPPER_STEPS, EDIT_NADA_STEPS, EDIT_OPT_STEPS = 6, 4, 5
+EDIT_LAUNCHES = {"mapper_id": (2, 1), "mapper": (1, 1), "nada": (2, 0), "nada_geometry": (2, 1),
+                 "optimize": (1, 1)}
+EDIT_YAWS = "-0.3,0,0.3"
+VIZ_TYPES = ("image", "raw", "seg", "depth", "normals")
+ANIM_MASKS = 8
+# fp32 with TF32 off. CLIP's embeddings, card against CPU: 1e-5 x max. The
+# mapper's and NADA's gradients against the CPU in float64: 1e-4 x max|grad|,
+# or no farther than the CPU's own fp32 is from float64 where that is farther.
+# Both devices' fp32 read ~1e-3 there: the CPU's fp32 1.09e-3 (mapper), 1.48e-3
+# (mapper without the ID term), 6.6e-4 (NADA), the card's 3.0e-4, 4.6e-4,
+# 4.1e-4 (H100 80GB HBM3, 700 W; PERF.md, open questions).
+CLIP_TOL, EDIT_GRAD_TOL = 1e-5, 1e-4
+
+
+@contextlib.contextmanager
+def adam_steps(meter: StepMeter, label: str):
+    """Inside, `meter` marks `label` at every Adam step (K1 launched before
+    the block is not counted; after the last step it is, as "between"), and
+    records the block's peak memory. cuDNN runs at TF32 on, PyTorch's default,
+    as a user's process."""
+    real = torch.optim.Adam.step
+
+    def step(opt, *a, **kw):
+        out = real(opt, *a, **kw)
+        meter.mark(label)
+        return out
+
+    from ide3d_tpu_torch.ops import ray_march
+
+    ray_march.sort_integrate.launches = ray_march.sort_integrate_backward.launches = 0
+    meter.mark("between")
+    torch.cuda.reset_peak_memory_stats()
+    torch.optim.Adam.step, meter.label = step, label
+    try:
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+            yield
+    finally:
+        torch.optim.Adam.step, meter.label = real, None
+        torch.cuda.synchronize()
+        meter.peak[label] = torch.cuda.max_memory_allocated() / 2**30
+        meter.mark("between")
+
+
+def write_editing_files(root: str) -> dict:
+    """A random-init full-width CLIP ViT-B/32 (the port's CLIP at ClipConfig()
+    from init(0), the OpenAI state-dict layout, fp16 on disk), a synthetic BPE
+    vocab (.gz, 3 merges) and a random-init IR-SE50 (ArcFace's JAX init)."""
+    import gzip
+    import os
+
+    from ide3d_tpu_torch.models.arcface import ArcFaceIRSE50
+    from ide3d_tpu_torch.models.clip import CLIP, ClipConfig
+
+    files = {k: os.path.join(root, n) for k, n in (("clip", "clip_vit_b32.pt"), ("bpe", "bpe.txt.gz"),
+                                                    ("ir_se50", "ir_se50.pth"))}
+    torch.save({k: v.half() for k, v in CLIP(ClipConfig()).init(0).state_dict().items()},
+               files["clip"])
+    with gzip.open(files["bpe"], "wt", encoding="utf-8") as f:
+        f.write("#version: 0.2\nh a\nha ir</w>\np u\n")
+    torch.save(ArcFaceIRSE50().init().half().state_dict(), files["ir_se50"])
+    return files
+
+
+def edit_step_k1(meter: StepMeter):
+    """Patches the renderer's K1 so that the first K1 call of a `mapper_id`
+    step with differentiable values keeps its inputs and, through hooks, the
+    step's own cotangents. Returns (captured, restore)."""
+    from ide3d_tpu_torch.ops import ray_march
+    from ide3d_tpu_torch.render import renderer
+
+    captured = {}
+
+    def capture(*args, **kw):
+        out = ray_march.sort_integrate(*args, **kw)
+        if not captured and meter.label == "mapper_id" and args[1].requires_grad:
+            captured.update(args=tuple(a.detach() for a in args), kw=kw, cot=[None] * 3)
+            for i, t in enumerate(out):
+                if t.requires_grad:
+                    t.register_hook(lambda g, i=i: captured["cot"].__setitem__(
+                        i, None if g is None else g.detach()))
+        return out
+
+    renderer.sort_integrate = capture
+
+    def restore():
+        renderer.sort_integrate = ray_march.sort_integrate
+
+    return captured, restore
+
+
+def k1_on_captured(captured: dict, label: str) -> dict:
+    """K1 against its plain version on captured inputs (bf16 <= 1e-3), and its
+    backward on the captured cotangents against autograd through plain (<= 1e-2
+    x max|grad|) when they were captured."""
+    from ide3d_tpu_torch.ops import ray_march
+
+    args, kw = captured["args"], captured["kw"]
+    with torch.no_grad():
+        got, ref = ray_march.sort_integrate(*args, **kw), ray_march.sort_integrate_plain(*args, **kw)
+    fwd = max_err(got, ref)
+    out = {"fwd_err": fwd, "dtype": str(args[1].dtype),
+           "shape": [list(args[1].shape), list(args[3].shape)]}
+    if "cot" in captured:
+        B, Rr, _, c1 = args[1].shape
+        cot = [torch.zeros(B, Rr, n, device="cuda") if g is None else g.float().contiguous()
+               for g, n in zip(captured["cot"], (c1 - 1, 1, 1))]
+        with torch.no_grad():
+            gb = ray_march.sort_integrate_backward(*args, *cot, **kw)
+            rb = ray_march.sort_integrate_backward_plain(*args, *cot, **kw)
+        _check_finite(f"{label} K1 backward", gb)
+        out["bwd_err"] = rel_err(gb, rb)
+    torch.cuda.synchronize()
+    _check_finite(f"{label} K1", got)
+    if fwd > 1e-3 or out.get("bwd_err", 0.0) > 1e-2:
+        raise RuntimeError(f"{label}: K1 vs plain {out} (limits 1e-3, backward 1e-2 x max|grad|)")
+    return out
+
+
+def editing_train(snap: str, files: dict, root: str) -> dict:
+    """train_styleclip_mapper (batch 2, with the ID loss and without), its
+    mapper through styleclip_edit at 3 yaws, train_nada (geometry frozen and
+    --train-geometry), optimize_latent: K1 launches per step, event ms per
+    step, peaks, the edit frame against G.synthesis, NADA's frozen parameters."""
+    import os
+
+    from ide3d_tpu_torch.apps import common, styleclip_edit, train_nada, train_styleclip_mapper
+    from ide3d_tpu_torch.models.clip import SimpleTokenizer, load_clip
+    from ide3d_tpu_torch.ops import ray_march
+    from ide3d_tpu_torch.render.camera import CANONICAL_POSE_25, look_at_pose, make_label_25
+    from ide3d_tpu_torch.train import nada, styleclip
+
+    meter = StepMeter()
+    base = ["--network", snap, "--clip", files["clip"], "--bpe", files["bpe"], "--device", "cuda"]
+    captured, restore = edit_step_k1(meter)
+    try:
+        with adam_steps(meter, "mapper_id"):
+            mapper = train_styleclip_mapper.main(base + [
+                "--description", "a face with purple hair", "--ir-se50", files["ir_se50"],
+                "--steps", str(EDIT_MAPPER_STEPS), "--outdir", os.path.join(root, "mapper_id")])
+    finally:
+        restore()
+    with adam_steps(meter, "mapper"):
+        train_styleclip_mapper.main(base + ["--description", "purple hair", "--steps", "3",
+                                            "--outdir", os.path.join(root, "mapper")])
+
+    G = common.load_generator(snap, "cuda")
+    c0 = torch.as_tensor(CANONICAL_POSE_25, device="cuda")[None]
+    with torch.no_grad():
+        ws = G.mapping(torch.as_tensor(np.random.RandomState(5).randn(1, G.z_dim),
+                                       dtype=torch.float32, device="cuda"), c0, truncation_psi=0.7)
+    np.savez(os.path.join(root, "w.npz"), ws=ws.cpu().numpy())
+    ray_march.sort_integrate.launches = 0
+    edit = styleclip_edit.main(["--network", snap, "--latents", os.path.join(root, "w.npz"),
+                                "--mapper", os.path.join(root, "mapper_id", "mapper"),
+                                f"--yaws={EDIT_YAWS}", "--outdir", os.path.join(root, "edit"),
+                                "--device", "cuda"])
+    edit_launches = ray_march.sort_integrate.launches
+    n_yaw = len(EDIT_YAWS.split(","))
+    with torch.no_grad():
+        want_edit = ws + 0.1 * mapper(ws)
+        gaps = {"batch_2": 0.0, "batch_1": 0.0}
+        for k, yaw in enumerate(float(y) for y in EDIT_YAWS.split(",")):
+            c = make_label_25(look_at_pose(yaw + np.pi / 2, np.pi / 2, [0.0, 0.0, 0.0], radius=2.7,
+                                           device="cuda"))
+            pair = G.synthesis(torch.cat([ws, want_edit]), c.expand(2, -1)).float().cpu().numpy()
+            one = G.synthesis(want_edit, c).float().cpu().numpy()
+            got = np.rint((edit["frames"][2 * k + 1] + 1) * 127.5).clip(0, 255)
+            gaps["batch_2"] = max(gaps["batch_2"], float(np.abs(
+                got - np.rint((pair[1] + 1) * 127.5).clip(0, 255)).max()))
+            gaps["batch_1"] = max(gaps["batch_1"], float(np.abs(
+                got - np.rint((one[0] + 1) * 127.5).clip(0, 255)).max()))
+    if edit_launches != n_yaw or gaps["batch_2"] > 1 or not np.isfinite(edit["frames"]).all():
+        raise RuntimeError(f"styleclip_edit: K1 {edit_launches} for {n_yaw} yaws (want one a yaw), "
+                           f"uint8 gap to G.synthesis {gaps} (limit 1 at the CLI's batch)")
+
+    with adam_steps(meter, "nada"):
+        out = train_nada.main(base + ["--source", "photo", "--target", "sketch", "--steps",
+                                      str(EDIT_NADA_STEPS), "--outdir", os.path.join(root, "nada")])
+    trained = {f"synthesis.{n}" for n, _ in nada.nada_parameters(G)}
+    s0, st = G.state_dict(), out["G"].state_dict()
+    s1 = common.load_generator(out["path"], "cuda").state_dict()
+    frozen_same = all(torch.equal(s0[k], st[k]) for k in s0 if k not in trained)
+    moved = sum(not torch.equal(s0[k], st[k]) for k in trained)
+    if (not frozen_same or not moved or not all(torch.equal(s1[k], st[k]) for k in st)
+            or not np.isfinite(out["losses"]).all()):
+        raise RuntimeError(f"train_nada: frozen parameters bit-identical {frozen_same}, "
+                           f"{moved}/{len(trained)} trained tensors moved, losses {out['losses']}")
+    nada_first = out["losses"][0]
+    with adam_steps(meter, "nada_geometry"):
+        out = train_nada.main(base + ["--source", "photo", "--target", "sketch", "--steps", "2",
+                                      "--train-geometry", "--outdir", os.path.join(root, "nada_geo")])
+    if not np.isfinite(out["losses"]).all():
+        raise RuntimeError(f"train_nada --train-geometry: losses {out['losses']}")
+    del out
+
+    clip_model = load_clip(files["clip"], device="cuda").requires_grad_(False)
+    tokens = torch.as_tensor(SimpleTokenizer(bpe_path=files["bpe"]).tokenize(
+        ["purple hair"], context_length=clip_model.cfg.context_length), device="cuda")
+    with adam_steps(meter, "optimize"):
+        w_opt = styleclip.optimize_latent(G, clip_model, tokens, ws, steps=EDIT_OPT_STEPS, lr=0.1,
+                                          log_every=0)
+    if not torch.isfinite(w_opt).all() or not float((w_opt - ws).abs().max()) > 0:
+        raise RuntimeError("optimize_latent: the latent did not move or is not finite")
+    meter.check(EDIT_LAUNCHES, "editing")
+    counts = {k: len(meter.launches(k)) for k in EDIT_LAUNCHES}
+    want = {"mapper_id": EDIT_MAPPER_STEPS, "mapper": 3, "nada": EDIT_NADA_STEPS,
+            "nada_geometry": 2, "optimize": EDIT_OPT_STEPS}
+    if counts != want:
+        raise RuntimeError(f"editing: steps counted {counts}, want {want}")
+    k1 = k1_on_captured(captured, "mapper step")
+    return {"launches": {k: meter.launches(k)[0] for k in EDIT_LAUNCHES},
+            "ms": {k: meter.step_ms(k) for k in EDIT_LAUNCHES}, "peak_gib": meter.peak,
+            "k1": k1, "edit_launches": edit_launches, "edit_gap": gaps, "nada_first_loss": nada_first,
+            "G": G, "clip": clip_model, "tokens": tokens}
+
+
+def viz_and_animation(G, snap: str, root: str) -> dict:
+    """VizRenderer at 48+48: every render type, cached and uncached renders
+    timed by CUDA events with K1 and generate_planes counted, capture_layers,
+    the page and /render through VizServer.handle, K1 at the render's inputs
+    against plain; infer_face_animation on 8 masks with --orbit and
+    converter_log_to_video on a recorded 4-edit session, K1 counted per frame."""
+    import io
+    import os
+
+    import PIL.Image
+
+    from ide3d_tpu_torch.apps import converter_log_to_video, infer_face_animation, viz_renderer
+    from ide3d_tpu_torch.apps.infer_hybrid_encoder import build_encoder
+    from ide3d_tpu_torch.apps.painter import PainterSession
+    from ide3d_tpu_torch.models.generator import Ide3dSynthesisNetwork
+    from ide3d_tpu_torch.ops import ray_march
+    from ide3d_tpu_torch.render import renderer
+
+    planes = {"n": 0}
+    real_planes = Ide3dSynthesisNetwork.generate_planes
+
+    def counted_planes(self, *a, **kw):
+        planes["n"] += 1
+        return real_planes(self, *a, **kw)
+
+    captured = {}
+
+    def capture(*args, **kw):
+        if not captured:
+            captured.update(args=tuple(a.detach() for a in args), kw=kw)
+        return ray_march.sort_integrate(*args, **kw)
+
+    r = viz_renderer.VizRenderer(G)
+    runs = {"uncached": [viz_renderer.VizState(seed=s) for s in range(3)],
+            "cached": [viz_renderer.VizState(seed=2, yaw=y) for y in np.linspace(-0.4, 0.4, 9)]
+            + [viz_renderer.VizState(seed=2, yaw=0.1, render_type=t) for t in VIZ_TYPES[1:]]}
+    times, launches, peak, shapes = {"cached": [], "uncached": [], "types": {}}, [], {}, {}
+    Ide3dSynthesisNetwork.generate_planes = counted_planes
+    renderer.sort_integrate = capture
+    try:
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+            for kind, sts in runs.items():
+                torch.cuda.reset_peak_memory_stats()
+                for st in sts:
+                    ray_march.sort_integrate.launches = 0
+                    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                    e0.record()
+                    img, info = r.render(st)
+                    e1.record()
+                    torch.cuda.synchronize()
+                    if info["plane_cached"] != (kind == "cached") or img.dtype != np.uint8:
+                        raise RuntimeError(f"viz: {st} plane_cached {info['plane_cached']}")
+                    ms = e0.elapsed_time(e1)
+                    if st.render_type == "image":
+                        times[kind].append(ms)
+                    else:
+                        times["types"][st.render_type] = ms
+                    launches.append(ray_march.sort_integrate.launches)
+                    shapes[st.render_type] = img.shape
+                peak[kind] = torch.cuda.max_memory_allocated() / 2**30
+            ray_march.sort_integrate.launches = 0
+            caps = r.capture_layers(viz_renderer.VizState(seed=1))
+            cap_launches = ray_march.sort_integrate.launches
+            server = viz_renderer.VizServer(r)
+            status, _, page, _ = server.handle("/", {})
+            status2, ctype, png, _ = server.handle("/render", {"seed": "2", "yaw": "0.1", "type": "seg"})
+    finally:
+        Ide3dSynthesisNetwork.generate_planes = real_planes
+        renderer.sort_integrate = ray_march.sort_integrate
+    bad = [n for n, e in caps.items() if not np.isfinite([e["mean"], e["std"]]).all()]
+    if (planes["n"] != 3 + 1 or set(launches) != {1} or cap_launches != 1 or bad
+            or status != 200 or status2 != 200 or ctype != "image/png"
+            or np.asarray(PIL.Image.open(io.BytesIO(png))).shape != (64, 64, 3)):
+        raise RuntimeError(f"viz: generate_planes {planes['n']} (want 4), K1 per render "
+                           f"{sorted(set(launches))}, capture_layers K1 {cap_launches}, non-finite taps "
+                           f"{bad}, routes {status} {status2} {ctype}")
+    k1 = k1_on_captured(captured, "viz render")
+
+    E = build_encoder(G, "random:0", "cuda")
+    per_call = []
+    real_edit = PainterSession.edit
+
+    def counted_edit(self, *a, **kw):
+        ray_march.sort_integrate.launches = 0
+        out = real_edit(self, *a, **kw)
+        per_call.append(ray_march.sort_integrate.launches)
+        return out
+
+    masks = os.path.join(root, "target_masks")
+    sess = PainterSession(G=G, E=E, record=True, device="cuda")
+    sess.set_seed(3)
+    mask_files = sorted(os.listdir(masks))
+    for f, yaw in zip(mask_files[:4], (0.0, 0.0, 0.3, 0.3)):
+        sess.edit(np.asarray(PIL.Image.open(os.path.join(masks, f))), yaw=yaw)
+    sess.save_log(os.path.join(root, "session.npz"))
+    PainterSession.edit = counted_edit
+    try:
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+            t0 = time.perf_counter()
+            anim = infer_face_animation.main(["--network", snap, "--masks", masks, "--orbit",
+                                              "--output", os.path.join(root, "anim.mp4"),
+                                              "--device", "cuda"])
+            anim_s = time.perf_counter() - t0
+            anim_calls, per_call[:] = list(per_call), []
+            replay = converter_log_to_video.main(["--network", snap, "--log",
+                                                  os.path.join(root, "session.npz"), "--seed", "3",
+                                                  "--output", os.path.join(root, "replay.mp4"),
+                                                  "--device", "cuda"])
+            replay_calls = list(per_call)
+    finally:
+        PainterSession.edit = real_edit
+    if anim_calls != [2] * ANIM_MASKS or replay_calls != [2, 1, 2, 1] or not (
+            os.path.exists(anim) and os.path.exists(replay)):
+        raise RuntimeError(f"face animation K1 per frame {anim_calls} (want 2 each), log replay "
+                           f"{replay_calls} (want [2, 1, 2, 1]), files {anim} {replay}")
+    return {"ms": times, "peak_gib": peak, "shapes": shapes, "capture_launches": cap_launches,
+            "planes": planes["n"], "k1": k1, "taps": len(caps),
+            "anim_launches": anim_calls, "anim_s": anim_s, "replay_launches": replay_calls}
+
+
+def editing_comparison(snap: str, imgs: str, root: str) -> dict:
+    """run_pti (1 target, 2 + 2 steps), edit_comparison on its outdir (an
+    InterFaceGAN direction at 4 factors, 1 GANSpace component at 9) and a short
+    experiment_runner (run_pti 2 + 2, --compare); strips written and K1 counted."""
+    import os
+    import shutil
+
+    import PIL.Image
+
+    from ide3d_tpu_torch.apps import edit_comparison, experiment_runner, run_pti
+    from ide3d_tpu_torch.ops import ray_march
+
+    one = os.path.join(root, "one")
+    os.makedirs(one)
+    name = sorted(os.listdir(imgs))[0]
+    shutil.copy(os.path.join(imgs, name), os.path.join(one, name))
+    run_pti.main(["--network", snap, "--images", one, "--outdir", os.path.join(root, "cmp_pti"),
+                  "--projector-steps", "2", "--pti-steps", "2", "--lpips-threshold", "0",
+                  "--device", "cuda"])
+    np.savez(os.path.join(root, "dirs.npz"),
+             smile=np.random.RandomState(6).randn(512).astype(np.float32) * 0.2)
+    ray_march.sort_integrate.launches = 0
+    edit_comparison.main(["--network", snap, "--images", one, "--pti", os.path.join(root, "cmp_pti"),
+                          "--directions", os.path.join(root, "dirs.npz"), "--interfacegan-max", "1.0",
+                          "--ganspace-components", "1", "--outdir", os.path.join(root, "cmp"),
+                          "--device", "cuda"])
+    cmp_launches = ray_march.sort_integrate.launches
+    strips = os.listdir(os.path.join(root, "cmp", name[:-4], "concat_images"))
+    rec = np.asarray(PIL.Image.open(os.path.join(root, "cmp", name[:-4], "concat_images", "rec.jpg")))
+    rc = experiment_runner.main(["--network", snap, "--images", one, "--outdir",
+                                 os.path.join(root, "exp"), "--projector-steps", "2", "--pti-steps",
+                                 "2", "--lpips-threshold", "0", "--compare", "--device", "cuda"])
+    exp_strips = os.listdir(os.path.join(root, "exp", "comparison", name[:-4], "concat_images"))
+    if (cmp_launches != 1 + 4 + 9 or len(strips) != 14 or rec.shape != (512, 1024, 3) or rc != 0
+            or len(exp_strips) != 19):
+        raise RuntimeError(f"edit_comparison: K1 {cmp_launches} (want 14 renders), strips "
+                           f"{len(strips)}, rec {rec.shape}; experiment_runner rc {rc}, strips "
+                           f"{len(exp_strips)} (want 19)")
+    return {"launches": cmp_launches, "strips": len(strips), "exp_strips": len(exp_strips)}
+
+
+def editing_card_vs_cpu(G, clip_path: str, tokens) -> dict:
+    """fp32 copies, TF32 off, card against CPU: CLIP's image and text
+    embeddings (2 images at 512², the bicubic preprocessing), a mapper step's
+    gradients in the mapper (batch 1; with the CLIP, ID and latent terms, and
+    without the ID term; ArcFace at half its init's conv std) and a NADA
+    step's in the trained parameters (batch 1, the trained copy's appearance
+    moved off the frozen one, renders at noise_mode 'const'), on the card in
+    fp32 ("card32"), on the CPU in fp32 ("cpu32") and in float64 ("cpu64",
+    float64_render: the third witness); the later runs replay the first's
+    importance depths. Returns {"a_vs_b": {quantity: max |a - b| / max |b|}}."""
+    import copy
+
+    from ide3d_tpu_torch.editing.latent_editor import LevelsMapper
+    from ide3d_tpu_torch.models.arcface import ArcFaceIRSE50
+    from ide3d_tpu_torch.models.clip import load_clip, make_image_embedder
+    from ide3d_tpu_torch.models.generator import Ide3dSynthesisNetwork
+    from ide3d_tpu_torch.render import renderer
+    from ide3d_tpu_torch.render.camera import CANONICAL_POSE_25
+    from ide3d_tpu_torch.train import nada, styleclip
+
+    rs = np.random.RandomState(8)
+    img = torch.as_tensor(rs.uniform(-1, 1, (2, 512, 512, 3)).astype(np.float32))
+    arc = ArcFaceIRSE50().init()
+    with torch.no_grad():
+        for m in arc.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                m.weight.mul_(0.5)
+    mapper0 = LevelsMapper(G.w_dim, G.num_ws).init(1)
+    w0 = (G.mapping.w_avg[None, None].repeat(1, G.num_ws, 1).cpu()
+          + torch.as_tensor(rs.randn(1, G.num_ws, G.w_dim).astype(np.float32)) * 0.3)
+    z = torch.as_tensor(rs.randn(1, G.z_dim).astype(np.float32))
+    tdir = torch.as_tensor(rs.randn(512).astype(np.float32))
+    moved = {n: torch.as_tensor(np.asarray(rs.randn(*p.shape), np.float32)) * 0.1
+             for n, p in nada.nada_parameters(G)}
+    depths, out = [], {}
+    real_pdf, real_fwd = renderer.sample_pdf, Ide3dSynthesisNetwork.forward
+
+    def recorded(*a, **kw):
+        depths.append(real_pdf(*a, **kw))
+        return depths[-1]
+
+    def replayed(*a, **kw):
+        replayed.i += 1
+        return depths[replayed.i - 1].to(a[0].device, a[0].dtype)
+
+    @contextlib.contextmanager
+    def float64_editing():
+        """float64_render, and the mapper loss's front camera in float64."""
+        real = styleclip._front
+        styleclip._front = lambda *a: real(*a).double()
+        try:
+            with float64_render():
+                yield
+        finally:
+            styleclip._front = real
+
+    runs = (("cpu32", "cpu", torch.float32, contextlib.nullcontext),
+            ("cpu64", "cpu", torch.float64, float64_editing),
+            ("card32", "cuda", torch.float32, contextlib.nullcontext))
+    Ide3dSynthesisNetwork.forward = (lambda self, ws, c, noise_mode="const", generator=None, **kw:
+                                     real_fwd(self, ws, c, **kw))
+    try:
+        for i, (label, dev, dtype, context) in enumerate(runs):
+            renderer.sample_pdf, replayed.i = (replayed if i else recorded), 0
+            with context():
+                clip_model = load_clip(clip_path, dtype=str(dtype)[6:], device=dev)
+                embed = make_image_embedder(clip_model.requires_grad_(False))
+                with torch.no_grad():
+                    res = {"image": embed(img.to(dev, dtype)),
+                           "text": clip_model.encode_text(tokens.to(dev))}
+                Gx = fp32_copy(G, dev).to(dtype).requires_grad_(False)
+                a = copy.deepcopy(arc).to(dev, dtype).eval().requires_grad_(False)
+                with torch.enable_grad():
+                    for key, cfg in (("mapper", styleclip.StyleClipConfig()),
+                                     ("mapper_no_id", styleclip.StyleClipConfig(id_lambda=0.0))):
+                        mapper = copy.deepcopy(mapper0).to(dev, dtype)
+                        loss, _ = styleclip.styleclip_loss(Gx, mapper, clip_model, tokens.to(dev),
+                                                           w0.to(dev, dtype), cfg, a.embed_faces)
+                        res[key] = torch.autograd.grad(loss, list(mapper.parameters()))
+                    G_train = nada.init_nada(Gx)
+                    params = dict(G_train.synthesis.named_parameters())
+                    with torch.no_grad():
+                        for n, d in moved.items():
+                            params[n].add_(d.to(dev, dtype))
+                    trained = [p for _, p in nada.nada_parameters(G_train)]
+                    c = torch.as_tensor(CANONICAL_POSE_25, device=dev, dtype=dtype)[None]
+                    loss = nada.nada_loss(G_train, Gx, embed, (tdir / tdir.norm()).to(dev, dtype),
+                                          z.to(dev, dtype), c, torch.Generator(device=dev))
+                    res["nada"] = torch.autograd.grad(loss, trained)
+            out[label] = {k: [t.detach().double().cpu() for t in (v if isinstance(v, tuple) else [v])]
+                          for k, v in res.items()}
+            for k, v in out[label].items():
+                _check_finite(f"editing card vs cpu {label} {k}", v)
+            del Gx, G_train, clip_model
+            if i and replayed.i != len(depths):
+                raise RuntimeError(f"editing card vs cpu: {replayed.i} importance draws replayed "
+                                   f"of {len(depths)}")
+    finally:
+        renderer.sample_pdf, Ide3dSynthesisNetwork.forward = real_pdf, real_fwd
+    if len(depths) != 5:
+        raise RuntimeError(f"editing card vs cpu: {len(depths)} importance draws recorded, want 5")
+    return {f"{a}_vs_{b}": {k: max(float((g - r).abs().max()) for g, r in zip(out[a][k], out[b][k]))
+                            / max(float(r.abs().max()) for r in out[b][k]) for k in out[b]}
+            for a, b in (("card32", "cpu32"), ("card32", "cpu64"), ("cpu32", "cpu64"))}
+
+
+def phase_editing(smi: str) -> dict:
+    import os
+    import tempfile
+
+    from ide3d_tpu_torch.models.generator import GeneratorConfig
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        snap = os.path.join(root, "flagship")
+        write_snapshot(snap, GeneratorConfig(), seed=0)
+        files = write_editing_files(root)
+        tr = editing_train(snap, files, root)
+        G = tr.pop("G")
+        imgs, _ = write_targets(G, root, ANIM_MASKS)
+        vz = viz_and_animation(G, snap, root)
+        cmp = editing_comparison(snap, imgs, root)
+        tokens = tr.pop("tokens")
+        del tr["clip"]
+        grads = editing_card_vs_cpu(G, files["clip"], tokens)
+        del G
+    limits = {k: CLIP_TOL for k in ("image", "text")}
+    limits.update({k: max(EDIT_GRAD_TOL, grads["cpu32_vs_cpu64"][k])
+                   for k in ("mapper", "mapper_no_id", "nada")})
+    held = {k: grads["card32_vs_cpu32" if k in ("image", "text") else "card32_vs_cpu64"][k]
+            for k in limits}
+    over = {k: (e, limits[k]) for k, e in held.items() if e > limits[k]}
+    if over:
+        raise RuntimeError(f"editing: fp32 card over its limits (CLIP against the CPU's fp32, "
+                           f"gradients against its float64): {over}; all {grads}")
+    med = {k: statistics.median(v) for k, v in tr["ms"].items() if v}
+    vmed = {k: statistics.median(vz["ms"][k]) for k in ("cached", "uncached")}
+    print(f"editing: GeneratorConfig() bf16 snapshot, random-init ClipConfig() ViT-B/32, TF32 on for "
+          f"the timed runs ({smi}): event ms per step median {json.dumps({k: round(v, 3) for k, v in med.items()})} "
+          f"(each {json.dumps({k: [round(t, 3) for t in v] for k, v in tr['ms'].items()})}); peak GiB "
+          f"{json.dumps({k: round(v, 3) for k, v in tr['peak_gib'].items()})}; K1 (forward, backward) "
+          f"per step {json.dumps(tr['launches'])}; styleclip_edit K1 {tr['edit_launches']} for 3 yaws, "
+          f"edit frame vs G.synthesis uint8 gap {tr['edit_gap']} (limit 1 at the CLI's batch 2); NADA's "
+          f"first loss {tr['nada_first_loss']!r}, frozen parameters bit-identical; K1 on a mapper "
+          f"step's inputs ({tr['k1']['dtype']} {tr['k1']['shape']}) vs plain {tr['k1']['fwd_err']:.3g} "
+          f"(limit 1e-3), its backward on the step's cotangents {tr['k1']['bwd_err']:.3g} x max|grad| "
+          f"(limit 1e-2)", flush=True)
+    print(f"editing: VizRenderer 48+48 ({smi}): event ms cached median {vmed['cached']:.3f} "
+          f"({[round(t, 3) for t in vz['ms']['cached']]}), uncached {vmed['uncached']:.3f} "
+          f"({[round(t, 3) for t in vz['ms']['uncached']]}), cached seg/depth/normals/raw {json.dumps({k: round(v, 3) for k, v in vz['ms']['types'].items()})}; peak GiB {json.dumps({k: round(v, 3) for k, v in vz['peak_gib'].items()})}; "
+          f"K1 1 a render, capture_layers {vz['capture_launches']} ({vz['taps']} taps), "
+          f"generate_planes {vz['planes']} for 4 identities; K1 at the render's inputs "
+          f"({vz['k1']['dtype']} {vz['k1']['shape']}) vs plain {vz['k1']['fwd_err']:.3g} (limit 1e-3); "
+          f"face animation K1 per frame {vz['anim_launches']} ({vz['anim_s']:.1f} s wall), log replay "
+          f"{vz['replay_launches']}; edit_comparison {cmp}; fp32 card vs cpu (TF32 off, max abs err / "
+          f"max) {json.dumps({r: {k: float(f'{v:.3g}') for k, v in e.items()} for r, e in grads.items()})} (limits: "
+          f"CLIP card32 vs cpu32 {CLIP_TOL:g}; gradients card32 vs cpu64 {EDIT_GRAD_TOL:g} or "
+          f"cpu32 vs cpu64 where larger); phase 11 wall {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return {**tr, "median_ms": med, "viz": vz, "viz_median_ms": vmed, "cmp": cmp, "grads": grads}
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
@@ -2223,6 +2791,7 @@ def main() -> None:
     off = phase_offline(smi.splitlines()[0])
     met = phase_metrics(smi.splitlines()[0])
     inv = phase_inversion(smi.splitlines()[0])
+    ed = phase_editing(smi.splitlines()[0])
     main_path, b1 = k["timing"][3], k["timing"][1]  # the frame runs K1 at B=3
     kb = tr["k1_backward"]
     print(json.dumps({"kernels": [{
@@ -2233,7 +2802,8 @@ def main() -> None:
         "launches": f["launches"],
         "max_abs_err": max(k["max_abs_err"], f["frame_err"], off["mesh"]["k1_err"],
                            *(v["k1_err"] for v in off["video"].values()),
-                           *met["counted"]["k1_err"].values(), inv["k1"]["fwd_err"]),
+                           *met["counted"]["k1_err"].values(), inv["k1"]["fwd_err"],
+                           ed["k1"]["fwd_err"], ed["viz"]["k1"]["fwd_err"]),
         "ms": main_path["ms"],
         "plain_ms": main_path["plain_ms"],
         "eager_ms": main_path["eager_ms"],
@@ -2256,6 +2826,15 @@ def main() -> None:
         "metrics_max_abs_err": met["counted"]["k1_err"],
         "inversion_launches": inversion_launches(inv, 0),
         "inversion_max_abs_err": inv["k1"]["fwd_err"],
+        "editing_launches": {**{f"{k}_step": v[0] for k, v in ed["launches"].items()},
+                             "styleclip_edit_per_yaw": ed["edit_launches"] // 3,
+                             "face_animation_per_frame": ed["viz"]["anim_launches"],
+                             "log_replay_per_entry": ed["viz"]["replay_launches"],
+                             "edit_comparison_total": ed["cmp"]["launches"]},
+        "viz_launches": {"render": 1, "capture_layers": ed["viz"]["capture_launches"],
+                         "generate_planes_for_4_identities": ed["viz"]["planes"]},
+        "editing_max_abs_err": {"mapper_step": ed["k1"]["fwd_err"],
+                                "viz_48_48": ed["viz"]["k1"]["fwd_err"]},
     }, {
         "name": "sort_integrate_backward",
         "route": "cuda",
@@ -2263,7 +2842,7 @@ def main() -> None:
         "replaces": "ide3d_tpu/ops/pallas/ray_march.py:121",
         "autodiff_of": "ide3d_tpu/render/integration.py:85",
         "launches": sum(n[1] for n in tr["full"]["launches"]),
-        "max_abs_err": max(kb["max_abs_err"], inv["k1"]["bwd_err"]),
+        "max_abs_err": max(kb["max_abs_err"], inv["k1"]["bwd_err"], ed["k1"]["bwd_err"]),
         "max_abs_err_is": "relative to max|grad|",
         "ms": kb["ms"],
         "plain_ms": kb["plain_ms"],
@@ -2279,6 +2858,9 @@ def main() -> None:
         "inversion_launches": inversion_launches(inv, 1),
         "inversion_max_abs_err": inv["k1"]["bwd_err"],
         "inversion_step_ms": {**inv["median_ms"], "encoder": inv["encoder"]["median_ms"]},
+        "editing_launches": {f"{k}_step": v[1] for k, v in ed["launches"].items()},
+        "editing_max_abs_err": ed["k1"]["bwd_err"],
+        "editing_step_ms": ed["median_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -7,11 +7,13 @@ module layout and names so that each module's counterpart is easy to find:
            sampling, and ray_march (the hand-written CUDA kernel K1 + its plain
            PyTorch version)
   render/  camera, integration (compositing + sample_pdf), TriplaneRenderer
-  models/  layers, mapping, blocks, generator (Ide3dGenerator), encoder,
-           discriminator, arcface (IR-SE50), bisenet, e4e
+  models/  layers, mapping, blocks, generator (Ide3dGenerator), encoder
+           (HybridEncoder, MultiViewHybridEncoder), discriminator, arcface
+           (IR-SE50), bisenet, e4e, clip (CLIP ViT-B/32 and its tokenizer)
+  editing/ latent_editor (GANSpace, InterFaceGAN, the StyleCLIP LevelsMapper)
   train/   gan (the GAN train step, lazy R1), augment (ADA), pti (the w+
            projector and pivotal tuning), encoder (the hybrid-encoder step),
-           losses
+           losses, styleclip (the mapper step, latent optimization), nada
   parallel/ stats (StatsAccumulator)
   data/    dataset (image + seg + camera label folders, infinite_loader)
   io/      from_jax: the JAX parameter tree -> this package's modules;
@@ -22,7 +24,10 @@ module layout and names so that each module's counterpart is easy to find:
   apps/    gen_images, painter, web_ui, train_gan, gen_videos,
            extract_shapes, render_mesh, avg_spectra, calc_metrics, run_pti,
            latent_creator, infer_hybrid_encoder, train_hybrid_encoder,
-           finetune_hybrid_encoder, calc_losses_on_images
+           finetune_hybrid_encoder, calc_losses_on_images, styleclip_edit,
+           train_styleclip_mapper, train_nada, edit_comparison,
+           experiment_runner, viz_renderer, infer_face_animation,
+           converter_log_to_video
   csrc/    CUDA C++ sources, compiled with nvcc at first use (see _build.py)
 
 Inside the conv stacks activations are NCHW and conv weights OIHW; the public

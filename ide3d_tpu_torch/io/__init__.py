@@ -10,4 +10,5 @@ from .torch_import import (
     load_pickle_tensors,
     load_torch_file_stubbed,
     pickle_payload_to_state_dicts,
+    state_dict_of,
 )

@@ -11,7 +11,11 @@ by its dotted path and converted:
   * everything else (biases, noise, w_avg, renderer decoder) as it is.
 
 Every tensor of the module must be found with the expected shape, and every
-leaf of the tree must be used; anything else raises. Imports numpy and torch only.
+leaf of the tree must be used; anything else raises. The same holds for the
+LevelsMapper and MultiViewHybridEncoder trees. CLIP's tree (`load_jax_clip`)
+keeps the OpenAI names with two leaves laid out otherwise: `attn.in_proj_weight`
+arrives [D, 3D] and is transposed back, `token_embedding.weight` is a
+[vocab, D] lookup table and stays as it is. Imports numpy and torch only.
 """
 
 from __future__ import annotations
@@ -45,8 +49,17 @@ def _convert(name: str, a: np.ndarray) -> np.ndarray:
     return a
 
 
-def load_jax_params(module: nn.Module, tree: Mapping) -> nn.Module:
-    """Copy `tree` (nested dicts of numpy arrays) into `module` in place; returns it."""
+def _convert_clip(name: str, a: np.ndarray) -> np.ndarray:
+    if name.endswith("attn.in_proj_weight"):
+        return a.T
+    if name == "token_embedding.weight":
+        return a
+    return _convert(name, a)
+
+
+def load_jax_params(module: nn.Module, tree: Mapping, convert=_convert) -> nn.Module:
+    """Copy `tree` (nested dicts of numpy arrays) into `module` in place,
+    each leaf through `convert(name, array)`; returns the module."""
     leaves = _leaves(tree)
     state = module.state_dict()
     missing = sorted(set(state) - set(leaves))
@@ -55,9 +68,14 @@ def load_jax_params(module: nn.Module, tree: Mapping) -> nn.Module:
         raise KeyError(f"JAX tree does not match the module: missing {missing}, unused {unused}")
     with torch.no_grad():
         for name, dst in state.items():
-            src = torch.from_numpy(np.array(_convert(name, np.asarray(leaves[name])), order="C"))
+            src = torch.from_numpy(np.array(convert(name, np.asarray(leaves[name])), order="C"))
             if tuple(src.shape) != tuple(dst.shape):
                 raise ValueError(f"{name}: JAX shape {tuple(src.shape)} after conversion, "
                                  f"module shape {tuple(dst.shape)}")
             dst.copy_(src.to(dst.dtype))
     return module
+
+
+def load_jax_clip(module: nn.Module, tree: Mapping) -> nn.Module:
+    """The JAX package's CLIP params (ide3d_tpu.models.clip) into models/clip.CLIP."""
+    return load_jax_params(module, tree, _convert_clip)

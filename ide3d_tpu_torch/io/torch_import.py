@@ -145,6 +145,17 @@ def load_torch_file_stubbed(path: str):
         return _ZipUnpickler(io.BytesIO(zf.read(pkl[0]))).load()
 
 
+def state_dict_of(obj) -> Dict[str, torch.Tensor]:
+    """The tensors of a loaded torch.save payload by name: the payload itself
+    when it is a state dict, its "state_dict" entry when it has one (StyleCLIP
+    mapper and training checkpoints); entries that are not tensors are dropped."""
+    if isinstance(obj, dict) and isinstance(obj.get("state_dict"), dict):
+        obj = obj["state_dict"]
+    if not isinstance(obj, dict):
+        raise ValueError(f"not a state dict: {type(obj).__name__}")
+    return {k: v for k, v in obj.items() if isinstance(v, torch.Tensor)}
+
+
 def import_bisenet(path: str, device: Union[torch.device, str] = "cuda"):
     """segNet-20Class.pth (a state dict, read with weights_only=True) ->
     BiSeNet(20) on `device`, in eval mode. The checkpoint's auxiliary heads and

@@ -18,13 +18,14 @@ Not ported yet: MultiViewHybridEncoder.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from .blocks import DTYPES
-from .layers import Conv2dLayer, init_seeded
+from .layers import Conv2dLayer, FullyConnectedLayer, init_seeded
 
 _CHANNELS = {4: 512, 8: 512, 16: 512, 32: 512, 64: 256, 128: 128, 256: 64, 512: 32, 1024: 16}
 
@@ -118,3 +119,66 @@ class HybridEncoder(nn.Module):
         out_img = self.img(img.permute(0, 3, 1, 2)).reshape(B, self.n_latents_app, self.w_dim)
         out_seg = self.seg(seg.permute(0, 3, 1, 2)).reshape(B, self.n_latents_geo, self.w_dim)
         return torch.cat([out_seg, out_img], dim=1)
+
+
+class _MultiViewStream(nn.Module):
+    """One stream of MultiViewHybridEncoder: the pyramid to the fused width
+    (NCHW in) and the 4-layer MLP on the fused feature half."""
+
+    def __init__(self, size: int, input_dim: int, n_latents: int, w_dim: int,
+                 fusion_channels: int, dtype: str):
+        super().__init__()
+        self.pyramid = _ConvPyramid(size, input_dim, fusion_channels, dtype)
+        dims = [fusion_channels // 2, 256, 256, 256, n_latents * w_dim]
+        for i in range(4):
+            setattr(self, f"fc{i}", FullyConnectedLayer(dims[i], dims[i + 1]))
+
+    def mlp(self, h: torch.Tensor) -> torch.Tensor:
+        for i in range(4):
+            h = getattr(self, f"fc{i}")(h)
+        return h
+
+
+class MultiViewHybridEncoder(nn.Module):
+    """Multi-view variant with sigma-weighted fusion
+    (contract: inversion/networks.py:1669-1773).
+
+    forward(img [V*B,R,R,3], seg [V*B,R,R,19]) -> fp32 ws [B, geo+app, w_dim];
+    views of one sample lie `batch` apart (networks.py:1766). Each pyramid
+    output is split into (sigma, feature) halves; the features are fused
+    across the `num_view` views weighted by sigma / sum over views (a zero sum
+    reads 1e-4); a single view uses its feature half directly (:1740)."""
+
+    def __init__(self, size: int = 512, n_latents_app: int = 10, n_latents_geo: int = 8,
+                 w_dim: int = 512, input_img_dim: int = 3, input_seg_dim: int = 19,
+                 num_view: int = 3, dtype: str = "float32", fusion_channels: int = 1024):
+        super().__init__()
+        self.n_latents_app, self.n_latents_geo, self.w_dim = n_latents_app, n_latents_geo, w_dim
+        self.num_view = num_view
+        self.img = _MultiViewStream(size, input_img_dim, n_latents_app, w_dim, fusion_channels, dtype)
+        self.seg = _MultiViewStream(size, input_seg_dim, n_latents_geo, w_dim, fusion_channels, dtype)
+
+    def init(self, seed: int = 0) -> "MultiViewHybridEncoder":
+        """Seeded weights (normal weights, zero biases), as Ide3dGenerator.init. Returns self."""
+        return init_seeded(self, seed)
+
+    def _fuse(self, feats: torch.Tensor, batch: int) -> torch.Tensor:
+        """[V*B, F] (sigma | feature) -> [B, F/2], sigma-weighted over the views."""
+        F_ = feats.shape[-1]
+        x = feats.reshape(self.num_view, batch, F_)
+        sigma, feat = x[..., : F_ // 2], x[..., F_ // 2:]
+        denom = sigma.sum(dim=0, keepdim=True)
+        denom = torch.where(denom == 0, torch.full_like(denom, 1e-4), denom)
+        return (feat * (sigma / denom)).sum(dim=0)
+
+    def forward(self, img: torch.Tensor, seg: torch.Tensor,
+                num_view: Optional[int] = None) -> torch.Tensor:
+        V = self.num_view if num_view is None else num_view
+        B = img.shape[0] // V
+        outs = {}
+        for name, x, nl in (("img", img, self.n_latents_app), ("seg", seg, self.n_latents_geo)):
+            stream = getattr(self, name)
+            feats = stream.pyramid(x.permute(0, 3, 1, 2))  # [V*B, fusion_channels]
+            fused = self._fuse(feats, B) if V > 1 else feats[:, feats.shape[-1] // 2:]
+            outs[name] = stream.mlp(fused).reshape(B, nl, self.w_dim)
+        return torch.cat([outs["seg"], outs["img"]], dim=1)

@@ -273,6 +273,7 @@ class Ide3dSynthesisNetwork(nn.Module):
                 "seg_raw": rout["seg"],
                 "depth": rout["depth"],
                 "weights_sum": rout["weights_sum"],
+                "feature": rout["feature"],
             }
         if return_seg:
             return img, self._upsample_seg(rout["seg"])

@@ -43,9 +43,10 @@ class MappingNetwork(nn.Module):
         c: Optional[torch.Tensor] = None,
         truncation_psi: float = 1.0,
         truncation_cutoff: Optional[int] = None,
+        broadcast: bool = True,
     ) -> torch.Tensor:
         """-> ws [B, num_ws, w_dim], truncated toward w_avg (rows < cutoff only,
-        when a cutoff is given); w [B, w_dim] when num_ws is None."""
+        when a cutoff is given); w [B, w_dim] when num_ws is None or not `broadcast`."""
         x = None
         if self.z_dim > 0:
             if z is None or z.shape[-1] != self.z_dim:
@@ -62,9 +63,10 @@ class MappingNetwork(nn.Module):
 
         if self.num_ws is None:
             return x
-        x = x[:, None, :].expand(-1, self.num_ws, -1)
+        if broadcast:
+            x = x[:, None, :].expand(-1, self.num_ws, -1)
         if truncation_psi != 1.0:
-            if truncation_cutoff is None:
+            if truncation_cutoff is None or not broadcast:
                 x = self.w_avg + (x - self.w_avg) * truncation_psi
             else:
                 head = self.w_avg + (x[:, :truncation_cutoff] - self.w_avg) * truncation_psi

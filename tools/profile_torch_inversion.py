@@ -33,7 +33,7 @@ from ide3d_tpu_torch.render.camera import CANONICAL_POSE_25  # noqa: E402
 from ide3d_tpu_torch.train import pti  # noqa: E402
 
 
-def profiled(name: str, fn, steps: int, out_dir: str) -> None:
+def profiled(name: str, fn, steps: int, out_dir: str, prefix: str = "inversion") -> None:
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -56,7 +56,7 @@ def profiled(name: str, fn, steps: int, out_dir: str) -> None:
     for e in sorted(ops, key=lambda e: -e.device_time_total)[:12]:
         print(f"  {e.device_time_total / 1e3:9.3f} ms  x{e.count:5d}  {e.key[:110]}")
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, f"profile_inversion_{name}.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"profile_{prefix}_{name}.txt"), "w") as f:
         f.write(avg.table(sort_by="self_device_time_total", row_limit=100))
         f.write("\n\n")
         f.write(avg.table(sort_by="device_time_total", row_limit=100))
