@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port on one CUDA card: build, check and time K1,
 then drive the frame, the Painter, training, offline generation, the
-metric suite, inversion and latent editing at the flagship width.
+metric suite, inversion, latent editing, real-photo preprocessing and the
+legacy checkpoint import at the flagship width.
 
     python3 chip_smoke.py
 
@@ -130,6 +131,40 @@ Phases, one line each; any failure ends the run with a non-zero exit:
                CLIP's image and text embeddings (<= 1e-5 x max), a mapper
                step's and a NADA step's gradients (<= 1e-4 x max|grad|). Event
                ms per step and per render, peaks.
+ 12. preprocess - fp32 with TF32 off, card against CPU (<= 3e-5 x max(1,
+               |output|)): P-Net on a 1024² photo's 615² pyramid level, R- and
+               O-Net on 64 crops at 24² and 48², FaceReconNet on 4 crops at
+               224² and its 25-dim labels, all from their seeded inits. Then
+               random-init pnet/rnet/onet.pt and epoch_20.pth ({'net_recon':
+               sd}) files and 4 photos (3 of the flagship's 512² renders with
+               cached FFHQ-aligned detections, one 1024²); the detectors' class
+               logits are biased toward 'face' (P-Net's bias solved on the
+               1024² photo so that its threshold falls in a logit gap) and
+               O-Net's landmarks set to a frontal layout, so that boxes pass
+               all three stages: apps.preprocess_in_the_wild.main on the card
+               (the cascade runs on the 1024² photo alone, finds faces that
+               keep the detect_faces contract, and its biggest is cropped),
+               each crop 512² with a radius-2.7 label; the cascade again on
+               the card, every class probability > 1e-4 from its threshold,
+               equal to its box stages on the CPU fed the card's net outputs,
+               the CPU's net inputs (<= 1e-4 in [-1, 1]) and its nets' outputs
+               on them (<= 3e-5 x scale) against the card's,
+               apps.dataset_tool.main to a zip that ImageFolderDataset reads
+               back (images and labels with the loader's flip), and
+               apps.run_pti.main on crop 0 with its label (--opencv-labels;
+               it must render at the dataset's c), 2 + 2 steps at TF32 on, K1
+               (forward, backward) (1, 1) a projector and a PTI step and (1, 0)
+               the _save_viz; ms per call of each stage (detect, FaceReconNet,
+               align_crop at 224² and 512²; the cascade also warm, 5 calls
+               after the CLI's), the CLI's wall per photo, event
+               ms per step, peaks. Then a config-f StyleGan2Generator (1024²,
+               no clamp, noise strengths 0.05) and its Discriminator from
+               seeded inits, every tensor then moved by N(0, 0.01²), written as
+               a TF1 (G, D, Gs) pickle of tflib Network objects and loaded by
+               load_network_pkl(device="cuda"): every tensor imported and
+               equal to the originals', a batch of 4 through G
+               and D (fp32) card against CPU (<= 3e-5 x scale), event ms a
+               batch, peaks.
 Then one JSON line with the kernels, and last {"ok": true, "device": {...}}.
 In that line K1's `ms` and `plain_ms` are device times per call at B=3 from
 the CUDA graphs; `eager_ms` is the time between CUDA events around one eager
@@ -147,12 +182,15 @@ Phase 11 adds `editing_launches` (per step of each editing loop; for K1 also
 per styleclip_edit yaw, face-animation frame, log-replay entry and the
 edit_comparison run) and `viz_launches` to K1's entry, `editing_max_abs_err`
 to both, `editing_step_ms` to the backward's; K1's `max_abs_err` also takes
-phase 11's.
+phase 11's. Phase 12 adds `preprocess_launches` (per step of the run_pti
+leg's loops and per _save_viz) to both and `preprocess_step_ms` to the
+backward's.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -2779,6 +2817,608 @@ def phase_editing(smi: str) -> dict:
     return {**tr, "median_ms": med, "viz": vz, "viz_median_ms": vmed, "cmp": cmp, "grads": grads}
 
 
+PREP_PHOTOS = 3  # 512² renders with cached detections; a fourth, 1024², goes through the cascade
+PREP_STEPS = 2  # projector and PTI steps of the run_pti leg
+PREP_WARM_DETECTS = 5  # timed calls of the cascade on the 1024² photo after the CLI's
+PREP_LAUNCHES = {"projector": (1, 1), "pti": (1, 1), "viz": (1, 0)}
+NET_TOL = 3e-5  # fp32 with TF32 off, card against CPU, x max(1, |output|)
+# Random detectors find no face. Their class logits are shifted by [-b, b],
+# b below for R- and O-Net (O-Net's confidences then clear the CLI's 0.9),
+# and P-Net's b is solved on the 1024² photo (bias_detectors).
+MTCNN_CLASS_BIAS = {"rnet": 1.0, "onet": 2.0}
+PNET_MIN_PASS = 24  # P-Net positions of the 1024² photo that pass its threshold, at least
+PNET_GAP = 2e-3  # the logit gap P-Net's threshold sits in: > 2.4e-4 of probability
+THRESH_MARGIN = 1e-4  # no class probability of the cascade this close to its threshold
+# The cascade's net inputs (antialiased bilinear pyramid levels and crops, in
+# [-1, 1]) card against CPU: 1e-4 is 1/78 of a uint8 level.
+RESIZE_TOL = 1e-4
+# O-Net's landmark head gives a frontal five-point layout in box units (the
+# five x, then the five y), so the detected face crops like a face.
+ONET_LAYOUT = (0.31, 0.69, 0.5, 0.35, 0.65, 0.46, 0.46, 0.64, 0.82, 0.82)
+TF_BATCH = 4
+# The BFM standard landmarks at the scale align_crop maps to itself at 512²
+# (rescale 300 into the 1024 crop, 700 of it resized to 512): an FFHQ-aligned face.
+FFHQ_LM_SCALE = 300.0 * 512 / 700
+
+
+def scaled_err(got, ref) -> float:
+    """max |got - ref| / max(1, max |ref|), fp32 tensors or arrays, finite first."""
+    got, ref = torch.as_tensor(got).float().cpu(), torch.as_tensor(ref).float().cpu()
+    if not (torch.isfinite(got).all() and torch.isfinite(ref).all()):
+        raise RuntimeError("non-finite output")
+    return float((got - ref).abs().max()) / max(1.0, float(ref.abs().max()))
+
+
+def write_photos(G, root: str) -> tuple:
+    """PREP_PHOTOS of G's 512² renders (write_targets) with their detections
+    at an FFHQ-aligned frontal layout in detections/<name>.txt, and one more
+    render resized to 1024² (PIL bicubic) with none. Returns (dir, names)."""
+    import os
+
+    import PIL.Image
+
+    from ide3d_tpu_torch.data.preprocess import LM3D_STD
+
+    photos, _ = write_targets(G, root, PREP_PHOTOS + 1)
+    last = os.path.join(photos, f"t{PREP_PHOTOS}.png")
+    PIL.Image.open(last).resize((1024, 1024), PIL.Image.BICUBIC).save(
+        os.path.join(photos, "wild.png"))
+    os.remove(last)
+    os.makedirs(os.path.join(photos, "detections"))
+    lm = LM3D_STD[:, :2] * FFHQ_LM_SCALE + 255.5
+    lm[:, 1] = 511 - lm[:, 1]  # y down
+    names = [f"t{i}" for i in range(PREP_PHOTOS)]
+    for n in names:
+        np.savetxt(os.path.join(photos, "detections", f"{n}.txt"), lm)
+    return photos, names
+
+
+def bias_detectors(nets: dict, photo: np.ndarray) -> dict:
+    """Make the random CPU nets find faces on `photo` through all three stages:
+    R- and O-Net's class logits shifted by [-b, b] (MTCNN_CLASS_BIAS), O-Net's
+    landmark head a frontal layout (ONET_LAYOUT, its weights x 1e-2), and
+    P-Net's [-b, b] solved from its class logits over the photo's pyramid, so
+    that the threshold 0.6 falls in a gap of PNET_GAP below the
+    PNET_MIN_PASS-th best position (or a later one). Returns P-Net's b and
+    how many positions pass."""
+    import math
+
+    from ide3d_tpu_torch.models.mtcnn import MTCNN
+
+    head = nets["pnet"].conv4_1
+    with torch.no_grad():
+        head.bias.zero_()
+        nets["rnet"].dense5_1.bias.copy_(torch.tensor([-1.0, 1.0]) * MTCNN_CLASS_BIAS["rnet"])
+        nets["onet"].dense6_1.bias.copy_(torch.tensor([-1.0, 1.0]) * MTCNN_CLASS_BIAS["onet"])
+        nets["onet"].dense6_3.weight.mul_(1e-2)
+        nets["onet"].dense6_3.bias.copy_(torch.tensor(ONET_LAYOUT))
+    logits = []
+    hook = head.register_forward_hook(lambda m, i, o: logits.append((o[:, 1] - o[:, 0]).flatten()))
+    try:  # the pyramid alone: no probability reaches a threshold of 2
+        MTCNN(nets, steps_threshold=(2.0, 0.7, 0.7)).detect_faces(photo)
+    finally:
+        hook.remove()
+    d = torch.sort(torch.cat(logits).double(), descending=True).values
+    wide = torch.nonzero(d[PNET_MIN_PASS - 1:-1] - d[PNET_MIN_PASS:] >= PNET_GAP)
+    if not len(wide):
+        raise RuntimeError(f"preprocess: no gap of {PNET_GAP:g} in P-Net's logits below "
+                           f"the {PNET_MIN_PASS}-th")
+    k = int(wide[0]) + PNET_MIN_PASS
+    b = (math.log(0.6 / 0.4) - float(d[k - 1] + d[k]) / 2) / 2  # p = sigmoid(d + 2b)
+    with torch.no_grad():
+        head.bias.copy_(torch.tensor([-b, b]))
+    return {"pnet_bias": b, "pnet_pass": k}
+
+
+def write_prep_weights(root: str, photos: str) -> dict:
+    """pnet/rnet/onet.pt from models.mtcnn.init(0), biased toward faces on
+    the 1024² photo (bias_detectors), and epoch_20.pth (nested as
+    Deep3DFaceRecon's training checkpoint) from FaceReconNet().init(0), in the
+    torch.save zip format. Returns their paths, the CPU nets and the biases."""
+    import os
+
+    import PIL.Image
+
+    from ide3d_tpu_torch.models import face_recon, mtcnn
+
+    mdir = os.path.join(root, "mtcnn")
+    os.makedirs(mdir)
+    nets = mtcnn.init(0, device="cpu")
+    bias = bias_detectors(nets, np.asarray(PIL.Image.open(os.path.join(photos, "wild.png")).convert("RGB")))
+    for name, net in nets.items():
+        torch.save(net.state_dict(), os.path.join(mdir, f"{name}.pt"))
+    recon = face_recon.FaceReconNet().init(0).eval()
+    path = os.path.join(root, "epoch_20.pth")
+    torch.save({"net_recon": recon.state_dict(), "epoch": 20}, path)
+    return {"mtcnn": mdir, "face_recon": path, "nets": nets, "recon": recon, "bias": bias}
+
+
+def cascade_card_vs_cpu(nets: dict, photo: np.ndarray) -> dict:
+    """detect_faces on the card, every class probability more than
+    THRESH_MARGIN from its threshold, held against the cascade's box stages
+    on the CPU fed the card's net outputs (boxes, confidences and keypoints
+    exactly equal: the thresholds, NMS and rounding see the same numbers); each
+    net input the CPU makes (pyramid levels, 24² and 48² crops) against the
+    card's (<= RESIZE_TOL) and the CPU net's output on it against the card's
+    (<= NET_TOL x scale)."""
+    import copy
+
+    from ide3d_tpu_torch.models.mtcnn import MTCNN
+
+    card = {n: copy.deepcopy(net).to("cuda").eval() for n, net in nets.items()}
+    calls = {n: [] for n in card}
+    hooks = [net.register_forward_hook(
+        lambda m, i, o, n=n: calls[n].append((i[0].cpu(), tuple(t.cpu() for t in o))))
+        for n, net in card.items()]
+    try:
+        got = MTCNN(card).detect_faces(photo)
+    finally:
+        for h in hooks:
+            h.remove()
+    margin = {}
+    for n, t in zip(("pnet", "rnet", "onet"), (0.6, 0.7, 0.7)):
+        probs = torch.cat([out[0][..., 1].flatten() for _, out in calls[n]])
+        margin[n] = float((probs - t).abs().min())
+    if not got or min(margin.values()) <= THRESH_MARGIN:
+        raise RuntimeError(f"preprocess: the card's cascade found {len(got)} faces; probability "
+                           f"margins to the thresholds {margin} (need > {THRESH_MARGIN:g})")
+    errs = {"inputs": {n: 0.0 for n in nets}, "outputs": {n: 0.0 for n in nets}}
+
+    class Replay(torch.nn.Module):
+        def __init__(self, name, recorded):
+            super().__init__()
+            self.name, self.net, self.recorded = name, nets[name], list(recorded)
+
+        def forward(self, x):
+            x_card, out_card = self.recorded.pop(0)
+            if x.shape != x_card.shape:
+                raise RuntimeError(f"preprocess: the CPU cascade fed {tuple(x.shape)} where "
+                                   f"the card's took {tuple(x_card.shape)}")
+            e = errs["inputs"]
+            e[self.name] = max(e[self.name], float((x - x_card).abs().max()))
+            e = errs["outputs"]
+            e[self.name] = max(e[self.name], *(scaled_err(o, oc) for o, oc in
+                                               zip(self.net(x), out_card)))
+            return tuple(o.clone() for o in out_card)
+
+    replay = {n: Replay(n, calls[n]) for n in nets}
+    want = MTCNN(replay).detect_faces(photo)
+    left = {n: len(r.recorded) for n, r in replay.items() if r.recorded}
+    if (want != got or left or max(errs["inputs"].values()) > RESIZE_TOL
+            or max(errs["outputs"].values()) > NET_TOL):
+        raise RuntimeError(f"preprocess: cascade card vs cpu: {len(got)} vs {len(want)} faces, "
+                           f"equal {want == got}, card calls not replayed {left}, net inputs "
+                           f"(limit {RESIZE_TOL:g}) and outputs (limit {NET_TOL:g} x scale) {errs}")
+    return {"found": len(got), "margin": margin, **errs,
+            "calls": {n: len(c) for n, c in calls.items()}}
+
+
+def prep_nets_card_vs_cpu(w: dict, photos: str) -> dict:
+    """P-Net on the 1024² photo's first pyramid level, R- and O-Net on batches
+    of 64 crops at 24² and 48², FaceReconNet on 4 crops at 224² (its 257
+    coefficients and the 25-dim labels): fp32 card against CPU, TF32 off."""
+    import copy
+    import os
+
+    import PIL.Image
+
+    from ide3d_tpu_torch.models import face_recon, mtcnn
+
+    img = torch.as_tensor(np.asarray(PIL.Image.open(os.path.join(photos, "wild.png")),
+                                     np.float32)).permute(2, 0, 1)[None]
+    level = (mtcnn._resize(img, 615, 615) - 127.5) * 0.0078125
+    rs = np.random.RandomState(12)
+    ins = {"pnet": level.permute(0, 2, 3, 1),
+           "rnet": torch.as_tensor(rs.uniform(-1, 1, (64, 24, 24, 3)), dtype=torch.float32),
+           "onet": torch.as_tensor(rs.uniform(-1, 1, (64, 48, 48, 3)), dtype=torch.float32),
+           "face_recon": torch.as_tensor(rs.uniform(0, 1, (4, 224, 224, 3)), dtype=torch.float32)}
+    nets = {**w["nets"], "face_recon": w["recon"]}
+    errs = {}
+    with torch.no_grad():
+        for name, net in nets.items():
+            ref = net(ins[name])
+            got = copy.deepcopy(net).to("cuda")(ins[name].to("cuda"))
+            if name == "face_recon":
+                errs[name] = scaled_err(got, ref)
+                errs["pose_label"] = scaled_err(face_recon.coeffs_to_pose_label(got.cpu().numpy()),
+                                                face_recon.coeffs_to_pose_label(ref.numpy()))
+            else:  # (probabilities, regression[, landmarks])
+                errs[name] = max(scaled_err(g, r) for g, r in zip(got, ref))
+    over = {k: e for k, e in errs.items() if e > NET_TOL}
+    if over:
+        raise RuntimeError(f"preprocess: nets fp32 card vs cpu over {NET_TOL:g} x scale: {over}")
+    return errs
+
+
+@contextlib.contextmanager
+def prep_stage_timer(ms: dict, detections: list):
+    """Times preprocess_in_the_wild's stages per call (host clock around a
+    synchronised call): MTCNN.detect_faces (its results kept in
+    `detections`), the FaceReconNet pass, and align_crop at 224² and at 512²."""
+    from ide3d_tpu_torch.data import preprocess
+    from ide3d_tpu_torch.models import face_recon, mtcnn
+
+    real = (mtcnn.MTCNN.detect_faces, face_recon.FaceReconNet.forward, preprocess.align_crop)
+
+    def timed(label, fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            ms.setdefault(label(a, kw), []).append((time.perf_counter() - t0) * 1e3)
+            return out
+        return call
+
+    detect = timed(lambda a, kw: "detect", real[0])
+
+    def detect_kept(self, img):
+        out = detect(self, img)
+        detections.append((img.shape, out))
+        return out
+
+    mtcnn.MTCNN.detect_faces = detect_kept
+    face_recon.FaceReconNet.forward = timed(lambda a, kw: "recon", real[1])
+    preprocess.align_crop = timed(lambda a, kw: f"crop{kw.get('output_size', 512)}", real[2])
+    try:
+        yield
+    finally:
+        mtcnn.MTCNN.detect_faces, face_recon.FaceReconNet.forward, preprocess.align_crop = real
+
+
+def prep_photo_path(snap: str, photos: str, names: list, w: dict, root: str, smi: str) -> dict:
+    """preprocess_in_the_wild -> dataset_tool -> ImageFolderDataset -> run_pti
+    on the first crop with its label, K1 counted per step."""
+    import copy
+    import os
+
+    import PIL.Image
+
+    from ide3d_tpu_torch.apps import dataset_tool, preprocess_in_the_wild, run_pti
+    from ide3d_tpu_torch.data.dataset import ImageFolderDataset
+    from ide3d_tpu_torch.models.mtcnn import MTCNN
+
+    ms, detections = {}, []
+    with prep_stage_timer(ms, detections):
+        t0 = time.perf_counter()
+        preprocess_in_the_wild.main(["--indir", photos, "--mtcnn", w["mtcnn"],
+                                     "--face-recon", w["face_recon"]])
+        cli_s = time.perf_counter() - t0
+    if [shape for shape, _ in detections] != [(1024, 1024, 3)]:
+        raise RuntimeError(f"preprocess: detect_faces ran on {[s for s, _ in detections]}, "
+                           "want the 1024² photo alone (the others' detections are cached)")
+    found = detections[0][1]
+    if not found:
+        raise RuntimeError("preprocess: the CLI's cascade found no face on the 1024² photo")
+    for r in found:
+        if set(r) != {"box", "confidence", "keypoints"} or len(r["box"]) != 4 or \
+                tuple(r["keypoints"]) != ("left_eye", "right_eye", "nose", "mouth_left", "mouth_right"):
+            raise RuntimeError(f"preprocess: detect_faces result breaks its contract: {r}")
+    wild = np.asarray(PIL.Image.open(os.path.join(photos, "wild.png")).convert("RGB"))
+    cascade = cascade_card_vs_cpu(w["nets"], wild)
+    # the cascade again on the same photo, warm (the CLI's call met each
+    # pyramid level's shape for the first time)
+    detector = MTCNN({k: copy.deepcopy(v).to("cuda").eval() for k, v in w["nets"].items()})
+    for _ in range(PREP_WARM_DETECTS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        detector.detect_faces(wild)
+        torch.cuda.synchronize()
+        ms.setdefault("detect_warm", []).append((time.perf_counter() - t0) * 1e3)
+    crop = os.path.join(photos, "crop")
+    with open(os.path.join(crop, "dataset.json")) as f:
+        labels = json.load(f)["labels"]
+    got = [n for n, _ in labels]
+    if got != [f"{n}.png" for n in names] + ["wild.png"]:
+        raise RuntimeError(f"preprocess: dataset.json holds {got}")
+    for n, lab in labels:
+        lab = np.asarray(lab, np.float64)
+        pose = lab[:16].reshape(4, 4)
+        if not (lab.shape == (25,) and np.isfinite(lab).all()
+                and abs(np.linalg.norm(pose[:3, 3]) - 2.7) < 1e-4
+                and np.abs(pose[:3, :3] @ pose[:3, :3].T - np.eye(3)).max() < 1e-4):
+            raise RuntimeError(f"preprocess: {n}'s label is not a radius-2.7 camera: {lab}")
+        if np.asarray(PIL.Image.open(os.path.join(crop, n))).shape != (512, 512, 3):
+            raise RuntimeError(f"preprocess: {n} is not a 512² RGB crop")
+
+    dest = os.path.join(root, "crops.zip")
+    dataset_tool.main(["--source", crop, "--dest", dest, "--resolution", "512"])
+    ds = ImageFolderDataset(dest)
+    if len(ds) != len(labels):
+        raise RuntimeError(f"dataset_tool: {len(ds)} images read back, want {len(labels)}")
+    img0, c0 = ds[0]
+    want = np.asarray(labels[0][1], np.float32).copy()
+    want[[1, 2, 5, 6, 9, 10]] *= -1  # the loader's OpenCV -> OpenGL flip
+    if img0.shape != (512, 512, 3) or np.abs(c0 - want).max() > 1e-6:
+        raise RuntimeError("dataset_tool: the zip does not read back to the crop and its label")
+
+    # run_pti on the first crop with its label, in the dataset.json convention
+    # (--opencv-labels applies the loader's flip; the c it renders at must be ds's)
+    lab_path = os.path.join(root, "pti_labels.json")
+    with open(lab_path, "w") as f:
+        json.dump(labels[:1], f)
+    meter = StepMeter()
+    restore = _metered(meter)
+    out = os.path.join(root, "pti_prep")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run_pti.main(["--network", snap, "--images", os.path.join(crop, labels[0][0]), "--outdir",
+                      out, "--labels", lab_path, "--opencv-labels", "--projector-steps",
+                      str(PREP_STEPS), "--pti-steps", str(PREP_STEPS), "--lpips-threshold", "0",
+                      "--device", "cuda"])
+        torch.cuda.synchronize()
+        pti_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        meter.mark("between")
+    finally:
+        restore()
+    meter.check(PREP_LAUNCHES, "preprocess run_pti")
+    name = os.path.splitext(labels[0][0])[0]
+    c_used = np.load(os.path.join(out, f"{name}_label.npz"))["c"].reshape(-1)
+    if np.abs(c_used - c0).max() > 1e-6:
+        raise RuntimeError(f"run_pti rendered at {c_used}, the dataset's label is {c0}")
+    ws = np.load(os.path.join(out, f"{name}.npz"))["ws"]
+    if not np.isfinite(ws).all():
+        raise RuntimeError("run_pti: non-finite pivot")
+    launches = {k: meter.launches(k) for k in PREP_LAUNCHES}
+    if [len(launches[k]) for k in PREP_LAUNCHES] != [PREP_STEPS, PREP_STEPS, 1]:
+        raise RuntimeError(f"preprocess run_pti: steps counted {launches}")
+    n_photos = PREP_PHOTOS + 1
+    return {"stage_ms": {k: statistics.median(v) for k, v in ms.items()}, "stage_ms_each": ms,
+            "cli_ms_per_photo": cli_s * 1e3 / n_photos, "found": len(found), "cascade": cascade,
+            "crops": len(labels), "launches": launches,
+            "step_ms": {k: meter.step_ms(k) for k in ("projector", "pti")}, "pti_s": pti_s,
+            "peak_gib": {"run_pti": peak, **meter.peak}, "mse": meter.mse}
+
+
+def tf_variables_g(G) -> dict:
+    """A StyleGan2Generator's TF1 variables: the inverse of
+    io/tf_legacy.convert_tf_generator_sd's name map and layout rules."""
+    sd = {k: v.detach().cpu().numpy() for k, v in G.state_dict().items()}
+    v = {"dlatent_avg": sd["mapping.w_avg"]}
+    for i in range(G.cfg.mapping_num_layers):
+        v[f"mapping/Dense{i}/weight"] = sd[f"mapping.fc{i}.weight"].T
+        v[f"mapping/Dense{i}/bias"] = sd[f"mapping.fc{i}.bias"]
+    v["synthesis/4x4/Const/const"] = sd["synthesis.b4.const"][None]
+
+    def conv_w(a, flip=False):
+        a = a.transpose(2, 3, 1, 0)  # [out, in, kh, kw] -> [kh, kw, in, out]
+        return a[::-1, ::-1] if flip else a
+
+    def layer(src, dst, noise_idx=None, flip=False):
+        v[f"{dst}/weight"] = conv_w(sd[f"{src}.weight"], flip)
+        v[f"{dst}/bias"] = sd[f"{src}.bias"]
+        v[f"{dst}/mod_weight"] = sd[f"{src}.affine.weight"].T
+        v[f"{dst}/mod_bias"] = sd[f"{src}.affine.bias"] - 1
+        if noise_idx is not None:
+            v[f"synthesis/noise{noise_idx}"] = sd[f"{src}.noise_const"][None, None]
+            v[f"{dst}/noise_strength"] = sd[f"{src}.noise_strength"]
+
+    layer("synthesis.b4.conv1", "synthesis/4x4/Conv", 0)
+    layer("synthesis.b4.torgb", "synthesis/4x4/ToRGB")
+    for res in G.block_resolutions[1:]:
+        n = int(np.log2(res))
+        layer(f"synthesis.b{res}.conv0", f"synthesis/{res}x{res}/Conv0_up", 2 * n - 5, flip=True)
+        layer(f"synthesis.b{res}.conv1", f"synthesis/{res}x{res}/Conv1", 2 * n - 4)
+        layer(f"synthesis.b{res}.torgb", f"synthesis/{res}x{res}/ToRGB")
+    return v
+
+
+def tf_variables_d(D) -> dict:
+    """A Discriminator's TF1 variables (the inverse of convert_tf_discriminator_sd
+    and of import_discriminator's (C, H, W) -> (H, W, C) column permutation)."""
+    sd = {k: v.detach().cpu().numpy() for k, v in D.state_dict().items()}
+
+    def conv_w(a):
+        return a.transpose(2, 3, 1, 0)
+
+    v = {}
+    for res in D.block_resolutions:
+        r = f"{res}x{res}"
+        if f"b{res}.fromrgb.weight" in sd:
+            v[f"{r}/FromRGB/weight"] = conv_w(sd[f"b{res}.fromrgb.weight"])
+            v[f"{r}/FromRGB/bias"] = sd[f"b{res}.fromrgb.bias"]
+        v[f"{r}/Conv0/weight"] = conv_w(sd[f"b{res}.conv0.weight"])
+        v[f"{r}/Conv0/bias"] = sd[f"b{res}.conv0.bias"]
+        v[f"{r}/Conv1_down/weight"] = conv_w(sd[f"b{res}.conv1.weight"])
+        v[f"{r}/Conv1_down/bias"] = sd[f"b{res}.conv1.bias"]
+        v[f"{r}/Skip/weight"] = conv_w(sd[f"b{res}.skip.weight"])
+    v["4x4/Conv/weight"] = conv_w(sd["b4.conv.weight"])
+    v["4x4/Conv/bias"] = sd["b4.conv.bias"]
+    fcw = sd["b4.fc.weight"]  # [out, R*R*C], (H, W, C) order
+    C = sd["b4.conv.bias"].shape[0]
+    R = int(np.sqrt(fcw.shape[1] // C))
+    v["4x4/Dense0/weight"] = fcw.reshape(-1, R, R, C).transpose(0, 3, 1, 2).reshape(fcw.shape[0], -1).T
+    v["4x4/Dense0/bias"] = sd["b4.fc.bias"]
+    v["Output/weight"] = sd["b4.out.weight"].T
+    v["Output/bias"] = sd["b4.out.bias"]
+    return v
+
+
+def write_tf_pickle(path: str, G, D) -> None:
+    """(G, D, Gs) as a TF1 StyleGAN2 pickle: dnnlib.tflib.network.Network
+    objects (a class of that path made for the dump and removed after it) with
+    version 4, static_kwargs and the variables in TF's layout; Gs is G."""
+    import pickle
+    import sys
+    import types
+
+    mods = ("dnnlib", "dnnlib.tflib", "dnnlib.tflib.network")
+    network = types.ModuleType(mods[2])
+    Network = type("Network", (), {"__module__": mods[2], "__qualname__": "Network"})
+    network.Network = Network
+    for m in mods[:2]:
+        sys.modules[m] = types.ModuleType(m)
+    sys.modules[mods[2]] = network
+
+    def net(variables, **static):
+        n = Network()
+        n.__dict__.update(version=4, name="G", static_kwargs=static, components={},
+                          variables=sorted((k, np.array(a)) for k, a in variables.items()))
+        return n
+
+    g_static = dict(latent_size=G.cfg.z_dim, dlatent_size=G.cfg.w_dim, label_size=0,
+                    resolution=G.cfg.img_resolution, num_channels=3,
+                    fmap_base=G.cfg.channel_base // 2, fmap_max=G.cfg.channel_max,
+                    mapping_layers=G.cfg.mapping_num_layers)
+    d_static = dict(label_size=0, resolution=D.cfg.img_resolution, num_channels=3,
+                    fmap_base=D.cfg.channel_base // 2, fmap_max=D.cfg.channel_max)
+    try:
+        gv = tf_variables_g(G)
+        with open(path, "wb") as f:
+            pickle.dump((net(gv, **g_static), net(tf_variables_d(D), **d_static), net(gv, **g_static)),
+                        f, protocol=4)
+    finally:
+        for m in mods:
+            del sys.modules[m]
+
+
+def prep_tf_legacy(root: str, smi: str) -> dict:
+    """A config-f StyleGan2Generator (1024², z = w = 512, 8 mapping layers,
+    channel_base 32768, channel_max 512, no clamp, as TF pickles convert) and
+    its Discriminator from seeded inits, written as a TF1 pickle and loaded
+    by load_network_pkl(device="cuda"): parameters exactly the originals', a
+    batch of 4 at 1024² fp32 and D's logits card against CPU."""
+    import os
+
+    from ide3d_tpu_torch.io import load_network_pkl
+    from ide3d_tpu_torch.models.discriminator import Discriminator, DiscriminatorConfig
+    from ide3d_tpu_torch.models.stylegan2 import StyleGan2Config, StyleGan2Generator
+
+    G = StyleGan2Generator(StyleGan2Config(conv_clamp=None)).init(0).eval()
+    D = Discriminator(DiscriminatorConfig(c_dim=0, img_resolution=1024, img_channels=3,
+                                          dtype="float32")).init(1).eval()
+    # Every tensor moved off its init (N(0, 0.01²) from one seed), so that one the
+    # import leaves at the importer's own init cannot equal the original;
+    # noise strengths at 0.05 first, so the noise maps count.
+    draw = torch.Generator().manual_seed(14)
+    with torch.no_grad():
+        for name, t in G.state_dict().items():
+            if name.endswith("noise_strength"):
+                t.fill_(0.05)
+        for net in (G, D):
+            for t in net.state_dict().values():
+                t.add_(0.01 * torch.randn(t.shape, generator=draw))
+    path = os.path.join(root, "stylegan2-config-f-tf.pkl")
+    t0 = time.perf_counter()
+    write_tf_pickle(path, G, D)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = load_network_pkl(path, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    for key in ("G", "D", "G_ema"):
+        if isinstance(out[key], Exception):
+            raise RuntimeError(f"TF1 pickle: {key} did not convert: {out[key]!r}")
+    Gc, rep = out["G_ema"]
+    Dc, drep = out["D"]
+    if Gc.cfg != G.cfg:
+        raise RuntimeError(f"TF1 pickle: config {Gc.cfg} != {G.cfg}")
+    for key, src in (("G", G), ("G_ema", G), ("D", D)):
+        mod, r = out[key]
+        a, b = mod.state_dict(), src.state_dict()
+        if sorted(a) != sorted(b) or any(not torch.equal(a[k].cpu(), b[k]) for k in b):
+            raise RuntimeError(f"TF1 pickle: {key}'s parameters are not the originals'")
+        if r.skipped_source or r.imported != len(b):
+            raise RuntimeError(f"TF1 pickle: {key} imported {r.imported} of {len(b)} tensors, "
+                               f"left {r.skipped_source} unmapped")
+    z = torch.as_tensor(np.random.RandomState(13).randn(TF_BATCH, 512), dtype=torch.float32)
+    zc = z.cuda()
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        img = Gc(zc)
+        torch.cuda.synchronize()
+        peak_g = torch.cuda.max_memory_allocated() / 2**30
+        ref = G(z)
+        g_err = scaled_err(img, ref)
+        D32 = Discriminator(dataclasses.replace(Dc.cfg, dtype="float32")).to("cuda").eval()
+        D32.load_state_dict(Dc.state_dict())
+        torch.cuda.reset_peak_memory_stats()
+        logits = D32(img, None)
+        torch.cuda.synchronize()
+        peak_d = torch.cuda.max_memory_allocated() / 2**30
+        d_err = scaled_err(logits, D(ref, None))
+        g_ms = event_median_ms(lambda: Gc(zc))
+        d_ms = event_median_ms(lambda: D32(img, None))
+    if g_err > NET_TOL or d_err > NET_TOL:
+        raise RuntimeError(f"TF1 pickle: fp32 card vs cpu G {g_err:.3g}, D {d_err:.3g} "
+                           f"(limit {NET_TOL:g} x scale)")
+    if tuple(img.shape) != (TF_BATCH, 1024, 1024, 3) or tuple(logits.shape) != (TF_BATCH, 1):
+        raise RuntimeError(f"TF1 pickle: shapes {tuple(img.shape)}, {tuple(logits.shape)}")
+    return {"g_err": g_err, "d_err": d_err, "g_ms": g_ms, "d_ms": d_ms, "peak_gib":
+            {"G": peak_g, "D": peak_d}, "write_s": write_s, "load_s": load_s,
+            "imported": {"G_ema": rep.imported, "D": drep.imported},
+            "pickle_mb": os.path.getsize(path) / 2**20}
+
+
+def preprocess_launches(pre: dict, i: int) -> dict:
+    """Phase 12's launches of K1 (i = 0) or its backward (i = 1) per step of
+    the run_pti leg's loops and per _save_viz (all equal; checked)."""
+    return {f"{k}_step" if k != "viz" else "save_viz": v[0][i]
+            for k, v in pre["path"]["launches"].items()}
+
+
+def phase_preprocess(smi: str) -> dict:
+    import os
+    import tempfile
+
+    from ide3d_tpu_torch.apps import common
+    from ide3d_tpu_torch.models.generator import GeneratorConfig
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        snap = os.path.join(root, "flagship")
+        write_snapshot(snap, GeneratorConfig(), seed=0)
+        G = common.load_generator(snap, "cuda")
+        photos, names = write_photos(G, root)
+        del G
+        w = write_prep_weights(root, photos)
+        nets = prep_nets_card_vs_cpu(w, photos)
+        path = prep_photo_path(snap, photos, names, w, root, smi)
+        tf = prep_tf_legacy(root, smi)
+    st, pre_bias, cas = path["stage_ms"], w["bias"], path["cascade"]
+    med = {k: statistics.median(v) for k, v in path["step_ms"].items() if v}
+    print(f"preprocess: fp32 card vs cpu, TF32 off, max abs err / max(1, |output|): "
+          f"{json.dumps({k: float(f'{v:.3g}') for k, v in nets.items()})} (P-Net on the 1024² "
+          f"photo's 615² level, R-/O-Net on 64 crops at 24²/48², FaceReconNet on 4 at 224² and "
+          f"its 25-dim labels; limit {NET_TOL:g}); the cascade on the 1024² photo: {cas['found']} "
+          f"faces, equal to the CPU's box stages fed the card's net outputs, net calls "
+          f"{json.dumps(cas['calls'])}, the CPU's net inputs (max abs err, in [-1, 1]) "
+          f"{json.dumps({k: float(f'{v:.3g}') for k, v in cas['inputs'].items()})} (limit "
+          f"{RESIZE_TOL:g}) and its nets' outputs on them "
+          f"{json.dumps({k: float(f'{v:.3g}') for k, v in cas['outputs'].items()})} against the "
+          f"card's (limit {NET_TOL:g} x scale), probability "
+          f"margins to the thresholds {json.dumps({k: float(f'{v:.3g}') for k, v in cas['margin'].items()})} "
+          f"(need > {THRESH_MARGIN:g})", flush=True)
+    print(f"preprocess: preprocess_in_the_wild on {PREP_PHOTOS} cached 512² renders + one 1024² "
+          f"photo ({smi}): ms per call median detect (1024², the whole cascade on the card, "
+          f"random-init nets with the class biases P-Net {pre_bias['pnet_bias']:.6f} "
+          f"({pre_bias['pnet_pass']} positions pass), R-Net {MTCNN_CLASS_BIAS['rnet']:g}, O-Net "
+          f"{MTCNN_CLASS_BIAS['onet']:g}; {path['found']} faces, the biggest cropped) "
+          f"{st['detect']:.3f} at the CLI's first call, "
+          f"{st['detect_warm']:.3f} warm ({[round(t, 3) for t in path['stage_ms_each']['detect_warm']]}), "
+          f"FaceReconNet (224², batch 1, with the copy) {st['recon']:.3f}, align_crop 224² "
+          f"{st['crop224']:.3f} / 512² {st['crop512']:.3f} (host); CLI wall "
+          f"{path['cli_ms_per_photo']:.1f} ms a photo; {path['crops']} crops -> dataset_tool -> "
+          f"ImageFolderDataset read back with the loader's label flip; run_pti on crop 0 with "
+          f"its label (--opencv-labels, rendered at the dataset's c), {PREP_STEPS} + "
+          f"{PREP_STEPS} steps at TF32 on: K1 (forward, backward) per projector step "
+          f"{path['launches']['projector']}, per PTI step {path['launches']['pti']}, per "
+          f"_save_viz {path['launches']['viz']}; event ms per step {json.dumps({k: [round(t, 3) for t in v] for k, v in path['step_ms'].items()})}; "
+          f"MSE {[(lab, round(a, 5), round(b, 5)) for lab, a, b in path['mse']]}; peak GiB "
+          f"{json.dumps({k: round(v, 3) for k, v in path['peak_gib'].items()})}; run_pti wall "
+          f"{path['pti_s']:.1f} s", flush=True)
+    print(f"preprocess: TF1 StyleGAN2 config-f (1024², {tf['pickle_mb']:.0f} MiB pickle, written "
+          f"{tf['write_s']:.1f} s, load_network_pkl to cuda {tf['load_s']:.1f} s, "
+          f"{tf['imported']} tensors imported) ({smi}): parameters equal the originals exactly; "
+          f"fp32 card vs cpu, batch {TF_BATCH}: G {tf['g_err']:.3g}, D logits {tf['d_err']:.3g} x "
+          f"scale (limit {NET_TOL:g}); event ms a batch G {tf['g_ms']:.3f}, D {tf['d_ms']:.3f}; "
+          f"peak GiB {json.dumps({k: round(v, 3) for k, v in tf['peak_gib'].items()})}; phase 12 "
+          f"wall {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"nets": nets, "path": path, "tf": tf, "step_median_ms": med}
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
@@ -2792,6 +3432,7 @@ def main() -> None:
     met = phase_metrics(smi.splitlines()[0])
     inv = phase_inversion(smi.splitlines()[0])
     ed = phase_editing(smi.splitlines()[0])
+    pre = phase_preprocess(smi.splitlines()[0])
     main_path, b1 = k["timing"][3], k["timing"][1]  # the frame runs K1 at B=3
     kb = tr["k1_backward"]
     print(json.dumps({"kernels": [{
@@ -2835,6 +3476,7 @@ def main() -> None:
                          "generate_planes_for_4_identities": ed["viz"]["planes"]},
         "editing_max_abs_err": {"mapper_step": ed["k1"]["fwd_err"],
                                 "viz_48_48": ed["viz"]["k1"]["fwd_err"]},
+        "preprocess_launches": preprocess_launches(pre, 0),
     }, {
         "name": "sort_integrate_backward",
         "route": "cuda",
@@ -2861,6 +3503,8 @@ def main() -> None:
         "editing_launches": {f"{k}_step": v[1] for k, v in ed["launches"].items()},
         "editing_max_abs_err": ed["k1"]["bwd_err"],
         "editing_step_ms": ed["median_ms"],
+        "preprocess_launches": preprocess_launches(pre, 1),
+        "preprocess_step_ms": pre["step_median_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

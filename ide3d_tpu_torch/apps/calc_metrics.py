@@ -20,7 +20,8 @@ import json
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--network", required=True,
-                    help="a snapshot directory or random:<seed>[:full|small|tiny]")
+                    help="a snapshot directory or random:<seed>[:full|small|tiny]; another "
+                         "preset raises (the JAX package builds the full G for it)")
     ap.add_argument("--data", default=None)
     ap.add_argument("--metrics", default="fid")
     ap.add_argument("--num-items", type=int, default=1000)

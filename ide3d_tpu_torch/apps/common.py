@@ -103,6 +103,8 @@ def write_video(path: str, frames, fps: int = 24) -> str:
 def load_generator(network: str, device: torch.device | str = "cuda") -> Ide3dGenerator:
     """The generator of `network` on `device` (the CPU only when asked), in eval mode:
       * `random:<seed>[:full|small|tiny]`: random weights from `init(seed)`;
+        any other preset raises ValueError (the JAX package's load_generator
+        builds the full G for an unknown one);
       * a snapshot directory as io/checkpoint.save_checkpoint and train_gan
         write it (state.pt + meta.json): G_ema when the state holds it, else
         the state itself as G's state dict, under the GeneratorConfig of

@@ -9,6 +9,7 @@ from .torch_import import (
     load_network_pkl,
     load_pickle_tensors,
     load_torch_file_stubbed,
+    load_torch_state_dict,
     pickle_payload_to_state_dicts,
     state_dict_of,
 )

@@ -17,7 +17,10 @@ architecture inference:
     architecture from a state dict, build the port's module (reference-compat
     generator: `vb_ref_compat=True, raw_head="slice"`) and load the tensors by
     name. Each returns (module on `device`, ImportReport).
-  * `load_network_pkl(path)` does all of that for every entry of a pickle.
+  * `load_network_pkl(path)` does all of that for every entry of a pickle; a
+    TF1-era (G, D, Gs) pickle goes through io/tf_legacy.py.
+  * `load_torch_state_dict(path)` reads a .pt / .pth state dict (MTCNN's
+    pnet/rnet/onet.pt, Deep3DFaceRecon's epoch_20.pth) through the stub reader.
   * `load_torch_file_stubbed(path)` reads a torch.save (zip) file, such as an
     e4e checkpoint with its pickled `opts`, through the same stub unpickler;
     `import_bisenet(path)` loads `segNet-20Class.pth` (weights_only=True).
@@ -156,6 +159,27 @@ def state_dict_of(obj) -> Dict[str, torch.Tensor]:
     return {k: v for k, v in obj.items() if isinstance(v, torch.Tensor)}
 
 
+def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """The tensors of a .pt / .pth file by name, on the CPU: the counterpart of
+    the JAX `load_torch_state_dict`, read by `load_torch_file_stubbed` so
+    nothing from the pickle runs. Unwraps a "state_dict" or "net_recon" entry
+    (training checkpoints, Deep3DFaceRecon's epoch_*.pth) and a pickled module
+    (its parameters and buffers under their dotted names). Only the torch.save
+    zip format is read: a legacy (pre-1.6, non-zip) file raises ValueError."""
+    if not zipfile.is_zipfile(path):
+        raise ValueError(f"{path}: not a torch.save zip file; a legacy (non-zip) torch file is "
+                         "not read (re-save it with torch.save from a current PyTorch)")
+    obj = load_torch_file_stubbed(path)
+    for key in ("state_dict", "net_recon"):
+        if isinstance(obj, dict) and isinstance(obj.get(key), dict):
+            obj = obj[key]
+    if isinstance(obj, dict) and "_parameters" in obj:
+        named: Dict[str, np.ndarray] = {}
+        _module_named_tensors(obj, "", named)
+        return {k: torch.from_numpy(v) for k, v in named.items()}
+    return state_dict_of(obj)
+
+
 def import_bisenet(path: str, device: Union[torch.device, str] = "cuda"):
     """segNet-20Class.pth (a state dict, read with weights_only=True) ->
     BiSeNet(20) on `device`, in eval mode. The checkpoint's auxiliary heads and
@@ -196,15 +220,6 @@ def pickle_payload_to_state_dicts(obj) -> Dict[str, Dict[str, np.ndarray]]:
         if sd:
             out[key] = sd
     return out
-
-
-def _is_tf_legacy_payload(payload) -> bool:
-    """A TF1-era pickle: a (G, D, Gs) tuple of tflib Network states."""
-    def is_network(n):
-        fields = n if isinstance(n, dict) else getattr(n, "__dict__", {})
-        return all(k in fields for k in ("version", "static_kwargs", "variables"))
-
-    return isinstance(payload, tuple) and len(payload) == 3 and all(map(is_network, payload))
 
 
 # --------------------------------------------------------------- name-mapped import
@@ -558,12 +573,15 @@ def load_network_pkl(path: str, device: Union[torch.device, str] = "cuda", **gen
     """A reference .pkl -> {'G' | 'G_ema' | 'D' | 'E': (module on `device`,
     ImportReport)} for each entry whose tensors deserialize; an entry that
     fails to import holds its exception. `gen_kwargs` go to import_generator
-    (render_size, num_steps, dtype, extra_map, auto_map_renderer)."""
+    (render_size, num_steps, dtype, extra_map, auto_map_renderer). A TF1-era
+    pickle, a (G, D, Gs) tuple of tflib Network states, is converted by
+    io/tf_legacy.py into {'G', 'D', 'G_ema'} (StyleGan2Generator in fp32, the
+    Discriminator in bf16, as in the JAX package); `gen_kwargs` do not apply."""
+    from .tf_legacy import convert_tf_payload, is_tf_legacy_payload
+
     payload = load_pickle_tensors(path)
-    if _is_tf_legacy_payload(payload):
-        raise NotImplementedError(
-            "TF1-era (G, D, Gs) pickles are not ported yet (ROADMAP Queue 1 item [12b], "
-            "io/tf_legacy)")
+    if is_tf_legacy_payload(payload):
+        return convert_tf_payload(payload, device=device)
     sds = pickle_payload_to_state_dicts(payload)
     # w_dim is not recoverable from an encoder state dict alone (its projector
     # rows are n_latents * w_dim): take it from the generator of the same pkl.

@@ -25,7 +25,7 @@ import torch
 from torch import nn
 
 from ..ops.upfirdn2d import setup_filter, upsample2d
-from .layers import RESAMPLE_FILTER, Conv2dLayer, SynthesisLayer, ToRGBLayer
+from .layers import CONV_CLAMP, RESAMPLE_FILTER, Conv2dLayer, SynthesisLayer, ToRGBLayer
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -34,14 +34,17 @@ class SynthesisBlock(nn.Module):
     """Consumes ws rows (w_conv0, w_conv1, w_torgb)."""
 
     def __init__(self, in_channels: int, out_channels: int, w_dim: int, resolution: int,
-                 img_channels: int, up: int = 2, dtype: str = "float32"):
+                 img_channels: int, up: int = 2, dtype: str = "float32",
+                 conv_clamp: Optional[float] = CONV_CLAMP):
         super().__init__()
         self.up = up
         self.dtype = DTYPES[dtype]
         self.register_buffer("resample_filter", setup_filter(RESAMPLE_FILTER), persistent=False)
-        self.conv0 = SynthesisLayer(in_channels, out_channels, w_dim, resolution, up=up)
-        self.conv1 = SynthesisLayer(out_channels, out_channels, w_dim, resolution)
-        self.torgb = ToRGBLayer(out_channels, img_channels, w_dim)
+        self.conv0 = SynthesisLayer(in_channels, out_channels, w_dim, resolution, up=up,
+                                    conv_clamp=conv_clamp)
+        self.conv1 = SynthesisLayer(out_channels, out_channels, w_dim, resolution,
+                                    conv_clamp=conv_clamp)
+        self.torgb = ToRGBLayer(out_channels, img_channels, w_dim, conv_clamp=conv_clamp)
 
     def forward(
         self,

@@ -3,8 +3,8 @@
 Counterpart of ide3d_tpu/models/layers.py: FullyConnectedLayer, Conv2dLayer
 (the full contract: bias or none, activation, FIR up/down, clamp),
 SynthesisLayer ('default' upsample mode) and ToRGBLayer, with the settings the
-generator uses (3x3 modulated convs with noise, lrelu and conv clamp 256; 1x1
-ToRGB). Parameters are stored
+generator uses (3x3 modulated convs with noise, lrelu and conv clamp 256, or no
+clamp for the TF1-era StyleGAN2 generator; 1x1 ToRGB). Parameters are stored
 unit-variance in fp32 and scaled by the equalized-lr gains at call time, then
 cast to the activations' dtype. Layouts: activations NCHW, conv weights OIHW,
 FC weights [out, in] (the JAX package: NHWC, HWIO, [in, out]; io/from_jax.py
@@ -93,10 +93,12 @@ class SynthesisLayer(nn.Module):
 
     kernel_size = 3
 
-    def __init__(self, in_channels: int, out_channels: int, w_dim: int, resolution: int, up: int = 1):
+    def __init__(self, in_channels: int, out_channels: int, w_dim: int, resolution: int, up: int = 1,
+                 conv_clamp: Optional[float] = CONV_CLAMP):
         super().__init__()
         self.resolution = resolution
         self.up = up
+        self.conv_clamp = conv_clamp
         self.register_buffer("resample_filter", setup_filter(RESAMPLE_FILTER), persistent=False)
         self.affine = FullyConnectedLayer(w_dim, in_channels, bias_init=1.0)
         k = self.kernel_size
@@ -138,15 +140,17 @@ class SynthesisLayer(nn.Module):
             resample_filter=self.resample_filter if self.up > 1 else None,
             flip_weight=(self.up == 1),
         )
-        return bias_act(x, self.bias.to(x.dtype), act="lrelu", gain=LRELU_GAIN, clamp=CONV_CLAMP)
+        return bias_act(x, self.bias.to(x.dtype), act="lrelu", gain=LRELU_GAIN, clamp=self.conv_clamp)
 
 
 class ToRGBLayer(nn.Module):
     """Style-modulated 1x1 projection without demodulation."""
 
-    def __init__(self, in_channels: int, out_channels: int, w_dim: int):
+    def __init__(self, in_channels: int, out_channels: int, w_dim: int,
+                 conv_clamp: Optional[float] = CONV_CLAMP):
         super().__init__()
         self.in_channels = in_channels
+        self.conv_clamp = conv_clamp
         self.affine = FullyConnectedLayer(w_dim, in_channels, bias_init=1.0)
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels, 1, 1))
         self.bias = nn.Parameter(torch.zeros(out_channels))
@@ -159,7 +163,7 @@ class ToRGBLayer(nn.Module):
     def forward(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         styles = self.affine(w.float()) * (1.0 / math.sqrt(self.in_channels))
         x = modulated_conv2d(x, self.weight.to(x.dtype), styles, demodulate=False)
-        return bias_act(x, self.bias.to(x.dtype), clamp=CONV_CLAMP)
+        return bias_act(x, self.bias.to(x.dtype), clamp=self.conv_clamp)
 
 
 def init_module(module: nn.Module, generator: torch.Generator) -> None:

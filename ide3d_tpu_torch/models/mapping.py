@@ -2,7 +2,9 @@
 
 Counterpart of ide3d_tpu/models/mapping.py: an 8-layer lr=0.01 MLP on the
 2nd-moment-normalized latent with a label embedding, w broadcast to num_ws
-rows, and truncation toward the tracked w_avg with an optional cutoff. With
+rows, and truncation toward the tracked w_avg with an optional cutoff. The
+label embedding is w_dim wide unless `embed_features` says otherwise (TF1-era
+StyleGAN2 pickles' `label_fmaps`). With
 num_ws=None (the discriminator's label mapping, z_dim=0) nothing is broadcast
 and there is no w_avg, as that tree has none.
 """
@@ -23,12 +25,13 @@ def normalize_2nd_moment(x: torch.Tensor, dim: int = -1, eps: float = 1e-8) -> t
 
 class MappingNetwork(nn.Module):
     def __init__(self, z_dim: int = 512, c_dim: int = 25, w_dim: int = 512,
-                 num_ws: Optional[int] = 18, num_layers: int = 8):
+                 num_ws: Optional[int] = 18, num_layers: int = 8,
+                 embed_features: Optional[int] = None):
         super().__init__()
         self.z_dim, self.c_dim, self.w_dim = z_dim, c_dim, w_dim
         self.num_ws = num_ws
         self.num_layers = num_layers
-        embed = w_dim if c_dim > 0 else 0
+        embed = (w_dim if embed_features is None else embed_features) if c_dim > 0 else 0
         features = [z_dim + embed] + [w_dim] * self.num_layers
         for i in range(self.num_layers):
             setattr(self, f"fc{i}", FullyConnectedLayer(

@@ -18,7 +18,7 @@ import torch
 
 from ide3d_tpu.train import augment as jaug
 from ide3d_tpu_torch.train import augment as taug
-from torch_threads import one_intra_op_thread  # noqa: F401 (a fixture)
+from torch_threads import module_one_intra_op_thread  # noqa: F401 (an autouse fixture)
 
 F32 = dict(compute_dtype="float32")
 
@@ -153,7 +153,7 @@ def test_draws_follow_the_generator():
     assert all(x.dtype == torch.bfloat16 for x in bf)
 
 
-def test_warp_differentiates_twice(one_intra_op_thread):
+def test_warp_differentiates_twice():
     """The warp and its transpose are each other's gradients, so R1's double
     backward goes through (float64 gradgradcheck on a grid reaching past the
     border); and the first gradient equals grid_sample's own."""

@@ -25,9 +25,8 @@ from ide3d_tpu.models import clip as jclip
 from ide3d_tpu_torch.io import load_torch_file_stubbed, state_dict_of
 from ide3d_tpu_torch.io.from_jax import load_jax_clip
 from ide3d_tpu_torch.models import clip as tclip
-from torch_threads import one_intra_op_thread  # noqa: F401 (a fixture)
+from torch_threads import module_one_intra_op_thread  # noqa: F401 (an autouse fixture)
 
-pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 TOL = 1e-5  # x max|output|: fp32, the order of sums apart
 CFG = dict(embed_dim=32, image_resolution=32, vision_layers=2, vision_width=64,
            vision_patch_size=8, context_length=16, vocab_size=520, transformer_width=48,

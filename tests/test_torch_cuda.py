@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from ide3d_tpu_torch.ops import ray_march
+from torch_threads import module_one_intra_op_thread  # noqa: F401 (an autouse fixture)
 
 
 @pytest.fixture(autouse=True)

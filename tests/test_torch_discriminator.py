@@ -18,6 +18,7 @@ from ide3d_tpu.models.discriminator import minibatch_stddev as j_minibatch_stdde
 from ide3d_tpu_torch.io.from_jax import load_jax_params
 from ide3d_tpu_torch.models.discriminator import (Discriminator, DiscriminatorConfig,
                                                   minibatch_stddev)
+from torch_threads import module_one_intra_op_thread  # noqa: F401 (an autouse fixture)
 
 TINY_D = dict(img_resolution=32, img_channels=25, channel_base=512, channel_max=32,
               dtype="float32")

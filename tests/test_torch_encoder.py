@@ -19,6 +19,7 @@ from ide3d_tpu_torch.io.from_jax import load_jax_params
 from ide3d_tpu_torch.models import encoder as tenc
 from ide3d_tpu_torch.models.layers import Conv2dLayer
 from ide3d_tpu_torch.utils import seg as tseg
+from torch_threads import module_one_intra_op_thread  # noqa: F401 (an autouse fixture)
 
 ATOL = 2e-4  # the golden test's own tolerance
 

@@ -23,6 +23,7 @@ from ide3d_tpu_torch.apps.common import PRESETS, load_generator
 from ide3d_tpu_torch.io.from_jax import load_jax_params
 from ide3d_tpu_torch.models.generator import GeneratorConfig, Ide3dGenerator
 from ide3d_tpu_torch.render.renderer import RenderParams
+from torch_threads import module_one_intra_op_thread  # noqa: F401 (an autouse fixture)
 
 GOLDEN_PATH = os.path.join(os.path.dirname(__file__), "golden_tiny_g.npz")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -89,6 +90,33 @@ def test_init_is_seeded():
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["synthesis.vb4.const"], c["synthesis.vb4.const"])
     assert torch.equal(a["synthesis.vb4.conv.affine.bias"], torch.ones(32))  # bias_init 1
+
+
+def test_gen_images_cli_matches_jax_at_const_noise(bridged_tiny, tmp_path, monkeypatch):
+    """Both gen_images CLIs at --noise-mode const (the only mode the JAX CLI
+    renders) on the bridged tiny G with noise strengths 0.5, so the constant
+    noise shows: the same PNG grids, images and seg, within 1 uint8 level."""
+    import PIL.Image
+
+    import ide3d_tpu.apps.common as jcommon
+    from ide3d_tpu.apps import gen_images as jgen_images
+
+    jG, params, G = bridged_tiny
+    noisy = jax.tree_util.tree_map_with_path(
+        lambda path, x: jnp.full_like(x, 0.5) if path[-1].key == "noise_strength" else x, params)
+    Gn = load_jax_params(Ide3dGenerator(G.cfg), jax.tree_util.tree_map(np.asarray, noisy)).eval()
+    monkeypatch.setattr(jcommon, "load_generator", lambda network: (jG, noisy))
+    monkeypatch.setattr(gen_images, "load_generator", lambda network, device="cuda": Gn.to(device))
+    args = ["--network", "x", "--seeds", "0,5", "--num-steps", "4", "--trunc", "0.7",
+            "--noise-mode", "const"]
+    jgen_images.main(args + ["--outdir", str(tmp_path / "jax")])
+    gen_images.main(args + ["--outdir", str(tmp_path / "port"), "--device", "cpu"])
+    names = sorted(os.listdir(tmp_path / "jax"))
+    assert names == sorted(os.listdir(tmp_path / "port")) and len(names) == 4
+    for n in names:
+        got, want = (np.asarray(PIL.Image.open(tmp_path / k / n), np.int32) for k in ("port", "jax"))
+        assert got.shape == want.shape == (32, 96, 3), n
+        assert int(np.abs(got - want).max()) <= 1, n
 
 
 def test_gen_images_cli_writes_pngs(tmp_path):

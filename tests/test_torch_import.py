@@ -31,9 +31,8 @@ from test_import_parity import (
     TinyHybridEncoder, TinySynthesis, TMapping, TSegBlock, TSynthBlock, TSynthesisLayer, TToRGB,
     _randomize,
 )
-from torch_threads import one_intra_op_thread  # noqa: F401 (a fixture)
+from torch_threads import module_one_intra_op_thread  # noqa: F401 (an autouse fixture)
 
-pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 
 ENC_CHANNELS = {16: 8, 8: 10, 4: 12}  # the fixture encoder's narrowed schedule
 GEN_KW = dict(render_size=8, num_steps=4, dtype="float32")
@@ -296,7 +295,10 @@ def test_extra_map_and_ambiguous_shapes_match_jax(fixture_nets):
 
 
 def test_tf_legacy_payload_raises(tmp_path):
-    """A (G, D, Gs) tuple of tflib Network states (their pickled fields)."""
+    """A (G, D, Gs) tuple of tflib Network states (their pickled fields) goes
+    to io/tf_legacy.py; variables that are not a StyleGAN2's make each entry
+    raise there, and load_network_pkl reports each entry's error
+    (tests/test_torch_tf_legacy.py converts real ones)."""
     Network = type("Network", (), {"__module__": "fake_tflib_network"})
     mod = types.ModuleType("fake_tflib_network")
     mod.Network = Network
@@ -312,8 +314,10 @@ def test_tf_legacy_payload_raises(tmp_path):
             pickle.dump(tuple(nets), f)
     finally:
         del sys.modules["fake_tflib_network"]
-    with pytest.raises(NotImplementedError, match="12b"):
-        timport.load_network_pkl(str(path), device="cpu")
+    out = timport.load_network_pkl(str(path), device="cpu")
+    assert sorted(out) == ["D", "G", "G_ema"]
+    for key, err in out.items():
+        assert isinstance(err, KeyError), (key, err)
 
 
 _CALLS = []

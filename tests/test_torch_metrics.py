@@ -49,7 +49,7 @@ from ide3d_tpu_torch.metrics.metric_utils import FeatureStats
 from ide3d_tpu_torch.models.generator import GeneratorConfig, Ide3dGenerator
 from ide3d_tpu_torch.render.camera import CANONICAL_POSE_25
 from ide3d_tpu_torch.render.renderer import RenderParams, TriplaneRenderer
-from torch_threads import one_intra_op_thread  # noqa: F401 (a fixture)
+from torch_threads import module_one_intra_op_thread  # noqa: F401 (an autouse fixture)
 
 TINY = dict(img_resolution=32, render_size=8, plane_resolution=16, channel_base=512,
             channel_max=32, sr_channel_base=256, sr_channel_max=16, feature_channels=8,
@@ -129,7 +129,7 @@ def _vgg_tree(cfg_name, seed):
 
 
 @pytest.mark.parametrize("cfg_name", ["vgg16", "vgg19"])
-def test_vgg_features_match_jax(cfg_name, vgg16_tree, one_intra_op_thread):
+def test_vgg_features_match_jax(cfg_name, vgg16_tree):
     """VGG16Features (taps at 32², fc1 at 224² from a 40² input, NCHW flatten
     order) with bridged weights: each tap and fc1 within 1e-5 x max|value|
     (fp32 convs, only the sums' order differs)."""
@@ -158,7 +158,7 @@ def inception_tree():
 _j_inception = jax.jit(lambda p, x: jfeat.InceptionV3()(p, x))  # one trace for both tests
 
 
-def test_inception_matches_jax(inception_tree, one_intra_op_thread):
+def test_inception_matches_jax(inception_tree):
     """InceptionV3 at batch 2, 299², JAX init() weights bridged: the port's own
     init() gives the same tensors exactly, and the features agree within
     1e-5 x max|feature| (the deterministic init shrinks the features to ~1e-6,
@@ -175,7 +175,7 @@ def test_inception_matches_jax(inception_tree, one_intra_op_thread):
     assert _rel_err(got, want) <= 1e-5
 
 
-def test_lpips_matches_jax(vgg16_tree, one_intra_op_thread):
+def test_lpips_matches_jax(vgg16_tree):
     """LPIPS at 64², the JAX tree (`vgg` + lin0..lin4 of shape (C,)) bridged as
     it is: distances within 1e-5 relative."""
     rng = np.random.default_rng(5)
@@ -194,8 +194,7 @@ def test_lpips_matches_jax(vgg16_tree, one_intra_op_thread):
     _finite_close(got, want, rtol=1e-5)
 
 
-def test_torchvision_weights_file_reads_the_same_in_both(tmp_path, inception_tree,
-                                                         one_intra_op_thread):
+def test_torchvision_weights_file_reads_the_same_in_both(tmp_path, inception_tree):
     """A torchvision-named Inception .pth (BN running stats that matter,
     `num_batches_tracked`, an unused `fc` head) written from the port's
     detector: both make_detectors read it to the same features (1e-5 x
@@ -361,7 +360,7 @@ J_PIXEL = jfeat.make_detector("pixel")[0]
 
 
 @pytest.mark.parametrize("name,jname,kw,tols", METRIC_CASES, ids=[c[0] for c in METRIC_CASES])
-def test_calc_metric_matches_jax(name, jname, kw, tols, bridged, tmp_path, one_intra_op_thread):
+def test_calc_metric_matches_jax(name, jname, kw, tols, bridged, tmp_path):
     """calc_metric end to end on the bridged tiny G, the pixel detector and a
     FakeDataset (the same z, c and t draws from RandomState(seed) in both),
     against the JAX record. PPL renders with noise_mode='random': the layer
@@ -434,7 +433,7 @@ def test_cond_render_raises(bridged):
 # ------------------------------------------------------ render and dataset pieces
 
 
-def test_pixel_offset_through_render_matches_jax(one_intra_op_thread):
+def test_pixel_offset_through_render_matches_jax():
     """RenderParams.pixel_offset shifts the rays of the coarse pass and, through
     its origins and directions, the fine pass: the deterministic render of
     random planes against the JAX renderer's, <= 1e-5 abs; and it moves the
@@ -501,7 +500,7 @@ def test_image_folder_getitem_matches_jax(tmp_path):
 # ---------------------------------------------------------------------- the CLIs
 
 
-def test_calc_metrics_cli_writes_records(tmp_path, one_intra_op_thread):
+def test_calc_metrics_cli_writes_records(tmp_path):
     """calc_metrics at random:0:tiny on the CPU, on a folder of 8 images: one
     finite record per metric, printed and appended to --run-dir."""
     imgs, _ = _write_folder(str(tmp_path), 8, 32)

@@ -32,9 +32,8 @@ from ide3d_tpu_torch.models.generator import GeneratorConfig, Ide3dGenerator
 from ide3d_tpu_torch.render.camera import CANONICAL_POSE_25
 from ide3d_tpu_torch.render.renderer import RenderParams
 from ide3d_tpu_torch.utils import marching as tmarching
-from torch_threads import one_intra_op_thread  # noqa: F401 (a fixture)
+from torch_threads import module_one_intra_op_thread  # noqa: F401 (an autouse fixture)
 
-pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(img_resolution=32, render_size=8, plane_resolution=16, channel_base=512,

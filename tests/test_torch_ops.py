@@ -17,7 +17,7 @@ from ide3d_tpu_torch.ops import conv2d_resample as tcr
 from ide3d_tpu_torch.ops import grid_sample as tgs
 from ide3d_tpu_torch.ops import modulated_conv as tmc
 from ide3d_tpu_torch.ops import upfirdn2d as tud
-from torch_threads import one_intra_op_thread  # noqa: F401 (a fixture)
+from torch_threads import module_one_intra_op_thread  # noqa: F401 (an autouse fixture)
 
 # ide3d_tpu.ops re-exports functions under its modules' names, so take the modules themselves.
 jba, jcr, jgs, jmc, jud = (importlib.import_module(f"ide3d_tpu.ops.{m}") for m in (
@@ -148,7 +148,7 @@ def test_triplane_keeps_dtype_and_samples_in_fp32():
 
 
 @pytest.mark.parametrize("stride,padding,groups", [(1, 1, 1), (2, 0, 1), (1, (2, 1), 4), (2, 1, 4)])
-def test_conv2d_gradfix_matches_conv2d_to_second_order(stride, padding, groups, one_intra_op_thread):
+def test_conv2d_gradfix_matches_conv2d_to_second_order(stride, padding, groups):
     """Forward, first and second derivatives of conv2d_gradfix.conv2d equal
     F.conv2d's (float64): the R1 shape, a gradient of a squared input
     gradient, taken in the weights. At stride 2 the even height needs an

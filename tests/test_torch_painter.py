@@ -32,6 +32,7 @@ from ide3d_tpu_torch.io.from_jax import load_jax_params
 from ide3d_tpu_torch.models.encoder import HybridEncoder
 from ide3d_tpu_torch.models.generator import GeneratorConfig, Ide3dGenerator
 from ide3d_tpu_torch.render.renderer import RenderParams
+from torch_threads import module_one_intra_op_thread  # noqa: F401 (an autouse fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(img_resolution=32, render_size=8, plane_resolution=16, channel_base=512,

@@ -28,6 +28,7 @@ from ide3d_tpu_torch.ops import ray_march
 from ide3d_tpu_torch.render import camera as tcam
 from ide3d_tpu_torch.render import integration as tint
 from ide3d_tpu_torch.render.renderer import RenderParams, TriplaneRenderer
+from torch_threads import module_one_intra_op_thread  # noqa: F401 (an autouse fixture)
 
 
 def t(a):

@@ -42,9 +42,8 @@ from ide3d_tpu_torch.ops import ray_march
 from ide3d_tpu_torch.render.renderer import RenderParams, TriplaneRenderer
 from ide3d_tpu_torch.train import augment as taug
 from ide3d_tpu_torch.train import gan
-from torch_threads import one_intra_op_thread  # noqa: F401 (a fixture)
+from torch_threads import module_one_intra_op_thread  # noqa: F401 (an autouse fixture)
 
-pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 TINY = dict(img_resolution=32, render_size=8, plane_resolution=16, channel_base=512,
             channel_max=32, sr_channel_base=256, sr_channel_max=16, feature_channels=8,
             dtype="float32")

@@ -19,9 +19,8 @@ from ide3d_tpu_torch.models.discriminator import Discriminator, DiscriminatorCon
 from ide3d_tpu_torch.models.generator import Ide3dGenerator
 from ide3d_tpu_torch.parallel.stats import StatsAccumulator
 from ide3d_tpu_torch.train import gan
-from torch_threads import one_intra_op_thread  # noqa: F401 (a fixture)
+from torch_threads import module_one_intra_op_thread  # noqa: F401 (an autouse fixture)
 
-pytestmark = pytest.mark.usefixtures("one_intra_op_thread")
 TINY_D = dict(img_resolution=32, img_channels=25, channel_base=512, channel_max=32,
               dtype="float32")
 B, R = 4, 32  # B a multiple of the stddev group: the D phase's interleaved call
