@@ -1,7 +1,9 @@
 """Smoke run of the PyTorch port on one CUDA card: build, check and time K1,
 then drive the frame, the Painter, training, offline generation, the
-metric suite, inversion, latent editing, real-photo preprocessing and the
-legacy checkpoint import at the flagship width.
+metric suite, inversion, latent editing, real-photo preprocessing, the
+legacy checkpoint import and the optional architectures (the hybrid feature
+volume, the SG3 superres, the built-in encoder, fine_steps) at the flagship
+width.
 
     python3 chip_smoke.py
 
@@ -165,6 +167,32 @@ Phases, one line each; any failure ends the run with a non-zero exit:
                equal to the originals', a batch of 4 through G
                and D (fp32) card against CPU (<= 3e-5 x scale), event ms a
                batch, peaks.
+ 13. arch   - the optional architectures, each G full width, bf16, init(seed=0),
+               written as a snapshot and read back by load_generator. Hybrid
+               GeneratorConfig(use_feature_volume=True): gen_images.synth_views
+               at batch 1 and 3 (event ms over 5 frames, K1 once and its
+               backward never a frame, peak) beside the flagship's, the
+               batch-3 frames of both in turns, the volume and each 3-D
+               sampler call timed alone, K1 on a frame's inputs against plain
+               (<= 1e-3), and on them with the density moved to a median of 13
+               (the random hybrid's densities lie far below 0, so nearly every
+               weight is 0 in fp32), the fp32 copy card vs CPU (<= 3e-5 x
+               scale), one
+               Painter round through PainterWebApp.handle after a warm-up (K1
+               and generate_planes per request as phase 6; every frame rendered
+               from the cached table and volume within 1 uint8 level of
+               G.synthesis), one NADA step at batch 2 with geometry frozen (K1
+               (2, 0), the volume without gradient and bit-identical). The
+               flagship at num_steps 64, fine_steps 128 beside 96 + 96 (event
+               ms, batch 1), K1 on the 64 + 128 inputs against plain. SG3
+               GeneratorConfig(sr_arch="sg3"): frames as the hybrid's, each
+               filtered_lrelu call of a batch-3 frame timed alone, the fp32
+               copy card vs CPU. Encoder GeneratorConfig(use_encoder=True):
+               G(cond_img=<its own render>) (event ms, K1 once),
+               infer_face_animation_avatar --style-image for 8 frames (K1 once
+               a frame), metric_main.calc_metric fid with cond_render at 32
+               items on 32 labelled 512² images (Inception, TF32 on, K1 once a
+               batch of 8).
 Then one JSON line with the kernels, and last {"ok": true, "device": {...}}.
 In that line K1's `ms` and `plain_ms` are device times per call at B=3 from
 the CUDA graphs; `eager_ms` is the time between CUDA events around one eager
@@ -184,7 +212,10 @@ edit_comparison run) and `viz_launches` to K1's entry, `editing_max_abs_err`
 to both, `editing_step_ms` to the backward's; K1's `max_abs_err` also takes
 phase 11's. Phase 12 adds `preprocess_launches` (per step of the run_pti
 leg's loops and per _save_viz) to both and `preprocess_step_ms` to the
-backward's.
+backward's. Phase 13 adds `arch_launches` (per frame, Painter round, metric
+batch and NADA step of its paths, each read from the counts set to 0 just
+before that path and read just after it) to both and `arch_max_abs_err` to
+K1's; K1's `max_abs_err` also takes phase 13's.
 """
 
 from __future__ import annotations
@@ -556,8 +587,8 @@ def _decode_png(b64: str, R: int) -> None:
 
 def painter_round(app, counts: dict, check: bool) -> list:
     """PAINTER_REQUESTS once through app.handle, every count set to 0 before
-    each request and read after it. Returns [(route, wall ms, K1, planes)] and
-    the orbit video's file type."""
+    each request and read after it. Returns [(route, wall ms, K1, planes, K1's
+    backward)], the counts as read, and the orbit video's file type."""
     import base64
 
     from ide3d_tpu_torch.apps import painter
@@ -574,17 +605,19 @@ def painter_round(app, counts: dict, check: bool) -> list:
                 payload = dict(payload, mask=base64.b64encode(masks[payload["mask"]].reshape(-1)).decode())
             body = json.dumps(payload).encode() if payload is not None else b""
             ray_march.sort_integrate.launches = counts["planes"] = 0
+            ray_march.sort_integrate_backward.launches = 0
             t0 = time.perf_counter()
             status, ctype, reply = app.handle(method, path, query or {}, body)
             ms = (time.perf_counter() - t0) * 1e3
             got = (ray_march.sort_integrate.launches, counts["planes"])
+            bwd = ray_march.sort_integrate_backward.launches
             if status != 200:
                 raise RuntimeError(f"painter {route}: status {status}: {reply[:300]!r}")
             if got != (k1, planes):
                 raise RuntimeError(f"painter {route}: K1 launches, generate_planes calls {got}, "
                                    f"want {(k1, planes)}")
             out = json.loads(reply)
-            rows.append((route, ms, k1, planes))
+            rows.append((route, ms, *got, bwd))
             if "render" in out:
                 _decode_png(out["render"], R)
             if "seg_ids" in out and len(base64.b64decode(out["seg_ids"])) != R * R:
@@ -665,7 +698,7 @@ def phase_painter(G, smi: str) -> dict:
         del S.generate_planes
     wall, launches = {}, {}
     for rows in rounds:
-        for route, ms, k1, _ in rows:
+        for route, ms, k1, *_ in rows:
             wall.setdefault(route, []).append(ms)
             launches[route] = k1
     wall_med = {route: statistics.median(v) for route, v in wall.items()}
@@ -3419,6 +3452,415 @@ def phase_preprocess(smi: str) -> dict:
     return {"nets": nets, "path": path, "tf": tf, "step_median_ms": med}
 
 
+# Phase 13: the optional architectures at full width, bf16, each G from
+# init(seed=0) written as a snapshot and read back by load_generator. Every G
+# pass launches K1 once; a NADA step with geometry frozen (2, 0).
+ARCH_RUNS = 5  # event-timed frames per batch size
+ARCH_AVATAR_FRAMES = 8
+ARCH_FID_ITEMS = 32  # cond_render FID: 4 G passes at batch 8
+ARCH_FID_IMAGES = 32  # the labelled 512² set's size
+SIGMA_MEDIAN = 13.0  # about the random flagship frame's median density
+
+
+def counted(fn):
+    """(fn(), (K1's launches, its backward's)), both counts set to 0 just
+    before the call and read just after it."""
+    from ide3d_tpu_torch.ops import ray_march
+
+    ray_march.sort_integrate.launches = ray_march.sort_integrate_backward.launches = 0
+    out = fn()
+    return out, (ray_march.sort_integrate.launches, ray_march.sort_integrate_backward.launches)
+
+
+def arch_frames(G, label: str, seed: int = 0) -> dict:
+    """gen_images.synth_views at batch 1 and 3 (the three yaws): a warm-up,
+    then ARCH_RUNS event-timed frames each, K1 and its backward counted over
+    them (one and none a frame), peak memory; one batch-3 frame's K1 inputs
+    through kernel and plain (<= 1e-3)."""
+    from ide3d_tpu_torch.apps import gen_images
+    from ide3d_tpu_torch.ops import ray_march
+    from ide3d_tpu_torch.render import renderer
+    from ide3d_tpu_torch.render.camera import CANONICAL_POSE_25
+    from ide3d_tpu_torch.render.renderer import RenderParams
+
+    cfg = G.cfg
+    rp = RenderParams(img_size=cfg.render_size, num_steps=96, hierarchical=True)
+    cams = gen_images.yaw_cameras("cuda")
+    c0 = torch.as_tensor(CANONICAL_POSE_25, device="cuda")[None]
+    with torch.inference_mode():
+        ws = G.mapping(torch.as_tensor(np.random.RandomState(seed).randn(1, cfg.z_dim),
+                                       dtype=torch.float32, device="cuda"), c0)
+    out = {}
+    for B, cam in ((1, cams[1:2]), (3, cams)):
+        img, seg, _ = gen_images.synth_views(G, ws, cam, rp)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+
+        def timed_frames():
+            for _ in range(ARCH_RUNS):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                frame = gen_images.synth_views(G, ws, cam, rp)
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+            return frame
+
+        (img, seg, _), launches = counted(timed_frames)
+        R = cfg.img_resolution
+        if tuple(img.shape) != (B, R, R, 3) or tuple(seg.shape) != (B, R, R, 19):
+            raise RuntimeError(f"{label}: frame shapes {tuple(img.shape)} {tuple(seg.shape)}")
+        _check_finite(f"{label} frame", (img, seg))
+        if launches != (ARCH_RUNS, 0):
+            raise RuntimeError(f"{label}: K1 and its backward launched {launches} times for "
+                               f"{ARCH_RUNS} frames")
+        out[B] = {"ms": times, "median_ms": statistics.median(times),
+                  "launches_per_frame": tuple(n / ARCH_RUNS for n in launches),
+                  "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    captured = []
+
+    def capture(*args, **kw):
+        captured.append((args, kw))
+        return ray_march.sort_integrate(*args, **kw)
+
+    renderer.sort_integrate = capture
+    try:
+        gen_images.synth_views(G, ws, cams, rp)
+    finally:
+        renderer.sort_integrate = ray_march.sort_integrate
+    ((args, kw),) = captured
+    with torch.inference_mode():
+        got, ref = ray_march.sort_integrate(*args, **kw), ray_march.sort_integrate_plain(*args, **kw)
+    _check_finite(f"{label} K1 and plain on a frame's inputs", (*got, *ref))
+    err = max_err(got, ref)
+    if err > 1e-3:
+        raise RuntimeError(f"{label}: K1 vs plain on a frame's inputs: max abs err {err}")
+    # At random init the hybrid's densities are far below 0, so nearly every
+    # weight is exactly 0 in fp32 and kernel and plain agree bit for bit; hold
+    # K1 also on these inputs with the density moved to the flagship's median.
+    sigma = torch.cat([args[1][..., -1], args[3][..., -1]], 2).float()
+    moved, shift = list(args), SIGMA_MEDIAN - float(sigma.median())
+    for i in (1, 3):
+        moved[i] = args[i].clone()
+        moved[i][..., -1] += shift
+    with torch.inference_mode():
+        got, ref2 = ray_march.sort_integrate(*moved, **kw), ray_march.sort_integrate_plain(*moved, **kw)
+    _check_finite(f"{label} K1 and plain on the moved density", (*got, *ref2))
+    err_moved = max_err(got, ref2)
+    if err_moved > 1e-3:
+        raise RuntimeError(f"{label}: K1 vs plain at the moved density: max abs err {err_moved}")
+    out.update(k1_err=err, k1_err_moved=err_moved, sigma_shift=shift, ws=ws,
+               frame=lambda: gen_images.synth_views(G, ws, cams, rp))
+    return out
+
+
+def op_ms(mod, name: str, frame) -> tuple:
+    """The calls of `mod.<name>` in one run of frame(), then each call alone
+    on its own inputs, event-timed (median of ARCH_RUNS, the card idle
+    before each): (calls, summed ms)."""
+    fn, calls = getattr(mod, name), []
+
+    def recorded(*args, **kw):
+        calls.append((args, kw))
+        return fn(*args, **kw)
+
+    setattr(mod, name, recorded)
+    try:
+        frame()
+    finally:
+        setattr(mod, name, fn)
+    with torch.inference_mode():
+        return len(calls), sum(event_median_ms(lambda a=a, kw=kw: fn(*a, **kw), ARCH_RUNS)
+                               for a, kw in calls)
+
+
+def _u8(img: torch.Tensor) -> np.ndarray:
+    return ((img + 1.0) * 127.5).round().clamp(0, 255).to(torch.uint8).cpu().numpy().astype(np.int32)
+
+
+def arch_painter(G) -> dict:
+    """One Painter round (phase 6's requests) through PainterWebApp.handle on
+    the hybrid G, after a warm-up round: route wall ms, K1 and generate_planes
+    per request (the plane cache carries the volume, so the flagship's counts
+    hold). Every frame the session renders in the round, against G.synthesis
+    of its ws and c with the planes and the volume made anew: within 1 uint8
+    level."""
+    from ide3d_tpu_torch.apps.painter import PainterSession
+    from ide3d_tpu_torch.apps.web_ui import PainterWebApp
+    from ide3d_tpu_torch.models.encoder import HybridEncoder
+
+    R, n_geo = G.cfg.img_resolution, G.synthesis.num_ws_geo
+    E = HybridEncoder(size=R, n_latents_app=G.num_ws - n_geo, n_latents_geo=n_geo,
+                      dtype=G.cfg.dtype).init(seed=1)
+    app = PainterWebApp(PainterSession(G=G, E=E.to("cuda").eval(), device="cuda"))
+    S = G.synthesis
+    counts, frames = {"planes": 0}, []
+    generate_planes, forward = S.generate_planes, S.forward
+
+    def counted_planes(*args, **kw):
+        counts["planes"] += 1
+        return generate_planes(*args, **kw)
+
+    def recorded(ws, c, *args, **kw):
+        out = forward(ws, c, *args, **kw)
+        if kw.get("table") is not None:
+            frames.append((ws.clone(), c.clone(), (out[0] if isinstance(out, tuple) else out).clone()))
+        return out
+
+    S.generate_planes = counted_planes
+    try:
+        painter_round(app, counts, check=True)
+        torch.cuda.synchronize()
+        S.forward = recorded
+        rows, _ = painter_round(app, counts, check=False)
+    finally:
+        del S.generate_planes
+        S.__dict__.pop("forward", None)
+    gap = 0
+    with torch.inference_mode():
+        for ws, c, img in frames:
+            gap = max(gap, int(np.abs(_u8(img) - _u8(S(ws, c))).max()))
+    if gap > 1 or not frames:
+        raise RuntimeError(f"hybrid painter: {len(frames)} cached-table frames, uint8 gap to "
+                           f"G.synthesis {gap} (limit 1)")
+    return {"rows": [(r, round(ms, 3), k1, pl, bwd) for r, ms, k1, pl, bwd in rows],
+            "frames": len(frames), "gap": gap,
+            "per_round": (sum(r[2] for r in rows), sum(r[4] for r in rows))}
+
+
+def arch_nada(G) -> dict:
+    """One NADA step on the hybrid G at batch 2 with geometry frozen, a fixed
+    random projection of the pooled image standing in for CLIP: K1 (2, 0),
+    the feature volume out of the optimizer, without gradient and
+    bit-identical, the superres moved; event ms of the step."""
+    from ide3d_tpu_torch.ops import ray_march
+    from ide3d_tpu_torch.render.camera import CANONICAL_POSE_25
+    from ide3d_tpu_torch.train import nada
+
+    gen = torch.Generator().manual_seed(0)
+    proj = torch.randn(3, 64, generator=gen).cuda()
+    tdir = torch.randn(64, generator=gen).cuda()
+    z = torch.randn(2, G.cfg.z_dim, generator=gen).cuda()
+    c = torch.as_tensor(CANONICAL_POSE_25, device="cuda")[None].expand(2, -1)
+    G_train = nada.init_nada(G)
+    fv = G_train.synthesis.feature_volume
+    before = {k: v.clone() for k, v in G_train.state_dict().items()}
+    step = nada.make_nada_step(G_train, G, lambda img: img.float().mean(dim=(1, 2)) @ proj, tdir)
+    step(z, c, torch.Generator(device="cuda").manual_seed(1))  # warm-up
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    loss, launches = counted(lambda: step(z, c, torch.Generator(device="cuda").manual_seed(2)))
+    end.record()
+    end.synchronize()
+    after = G_train.state_dict()
+    fv_same = all(torch.equal(after[k], before[k]) for k in after if ".feature_volume." in f".{k}")
+    sr_moved = any(not torch.equal(after[k], before[k]) for k in after if k.startswith("synthesis.b"))
+    no_grad = all(not p.requires_grad and p.grad is None for p in fv.parameters())
+    if launches != (2, 0) or not (fv_same and sr_moved and no_grad) or not torch.isfinite(loss):
+        raise RuntimeError(f"hybrid NADA step: K1 {launches} (want (2, 0)), volume frozen "
+                           f"{fv_same}, no gradient {no_grad}, superres moved {sr_moved}, loss {loss}")
+    return {"launches": launches, "ms": start.elapsed_time(end), "loss": float(loss)}
+
+
+def arch_fine_steps(G, ws) -> dict:
+    """The flagship G's three-yaw batch of `ws` at num_steps 64, fine_steps
+    128 beside 96 + 96 (event ms, medians of ARCH_RUNS, in turns 96, 64, 64,
+    96); K1 and its backward counted over one 64 + 128 frame, and K1 on that
+    frame's inputs against plain (<= 1e-3)."""
+    from ide3d_tpu_torch.apps import gen_images
+    from ide3d_tpu_torch.ops import ray_march
+    from ide3d_tpu_torch.render import renderer
+    from ide3d_tpu_torch.render.renderer import RenderParams
+
+    cams = gen_images.yaw_cameras("cuda")
+    rps = {"96+96": RenderParams(num_steps=96), "64+128": RenderParams(num_steps=64, fine_steps=128)}
+    ms, halves = {}, []
+
+    def capture(*args, **kw):
+        halves.append((args, kw))
+        return ray_march.sort_integrate(*args, **kw)
+
+    for k in ("96+96", "64+128", "64+128", "96+96"):
+        gen_images.synth_views(G, ws, cams, rps[k])
+        ms.setdefault(k, []).append(event_median_ms(
+            lambda rp=rps[k]: gen_images.synth_views(G, ws, cams, rp), ARCH_RUNS))
+    renderer.sort_integrate = capture
+    try:
+        (img, *_), launches = counted(lambda: gen_images.synth_views(G, ws, cams, rps["64+128"]))
+    finally:
+        renderer.sort_integrate = ray_march.sort_integrate
+    ((args, kw),) = halves
+    with torch.inference_mode():
+        got, ref = ray_march.sort_integrate(*args, **kw), ray_march.sort_integrate_plain(*args, **kw)
+    _check_finite("fine_steps frame, K1 and plain", (img, *got, *ref))
+    err = max_err(got, ref)
+    if (args[1].shape[2], args[3].shape[2]) != (64, 128) or err > 1e-3 or launches != (1, 0):
+        raise RuntimeError(f"fine_steps: K1 halves {args[1].shape[2]}+{args[3].shape[2]}, "
+                           f"max abs err vs plain {err}, K1 and its backward {launches}")
+    return {"ms": ms, "k1_err": err, "halves": (64, 128), "launches": launches}
+
+
+def arch_encoder(snap: str, root: str) -> dict:
+    """The encoder G: G(cond_img=<its own render>) at batch 1 with the camera
+    from its yaw/pitch head (event ms); infer_face_animation_avatar
+    --style-image (that render) for ARCH_AVATAR_FRAMES frames, K1 once a
+    frame; metric_main.calc_metric fid with cond_render on 32 labelled 512²
+    images (Inception, deterministic init, batch 8), K1 once a G pass. K1
+    and its backward are counted on each of the three."""
+    import os
+
+    import PIL.Image
+
+    from ide3d_tpu_torch.apps import common, infer_face_animation_avatar
+    from ide3d_tpu_torch.data.dataset import ImageFolderDataset
+    from ide3d_tpu_torch.metrics import calc_metric, make_detector
+    from ide3d_tpu_torch.ops import ray_march
+    from ide3d_tpu_torch.render.camera import CANONICAL_POSE_25
+
+    G = common.load_generator(snap, "cuda")
+    R = G.cfg.img_resolution
+    c = torch.as_tensor(CANONICAL_POSE_25, device="cuda")[None]
+    with torch.inference_mode():
+        own = G(torch.as_tensor(np.random.RandomState(0).randn(1, 512), dtype=torch.float32,
+                                device="cuda"), c)
+        G(cond_img=own)
+        frame, cond_launches = counted(lambda: G(cond_img=own))
+        cond_ms = event_median_ms(lambda: G(cond_img=own), ARCH_RUNS)
+        ws, cam = G.encode(own)
+    _check_finite("cond_img frame", [frame, ws, cam])
+    if tuple(frame.shape) != (1, R, R, 3) or cond_launches != (1, 0):
+        raise RuntimeError(f"cond_img frame {tuple(frame.shape)}, K1 {cond_launches}")
+
+    style = os.path.join(root, "style.png")
+    PIL.Image.fromarray(_u8(own[0]).astype(np.uint8)).save(style)
+    t0 = time.perf_counter()
+    _, avatar_launches = counted(lambda: infer_face_animation_avatar.main(
+        ["--network", snap, "--style-image", style, "--frames", str(ARCH_AVATAR_FRAMES),
+         "--output", os.path.join(root, "avatar.mp4"), "--device", "cuda"]))
+    avatar_s = time.perf_counter() - t0
+    if avatar_launches != (ARCH_AVATAR_FRAMES, 0):
+        raise RuntimeError(f"avatar: K1 {avatar_launches} for {ARCH_AVATAR_FRAMES} frames")
+
+    imgs, _ = write_dataset(os.path.join(root, "data"), ARCH_FID_IMAGES, R)
+    det = make_detector("inception", device="cuda")
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+        rec, fid_launches = counted(lambda: calc_metric(
+            "fid", G=G, dataset=ImageFolderDataset(imgs, resolution=R), detector=det,
+            num_items=ARCH_FID_ITEMS, batch_size=METRIC_BATCH, cond_render=True, device="cuda"))
+    if not np.isfinite(rec["results"]["fid"]) or fid_launches != (ARCH_FID_ITEMS // METRIC_BATCH, 0):
+        raise RuntimeError(f"cond_render fid {rec['results']}, K1 {fid_launches}")
+    return {"cond_ms": cond_ms, "cond_launches": cond_launches, "cam": cam[0].tolist(),
+            "avatar_s": avatar_s, "avatar_launches": avatar_launches,
+            "fid": rec["results"]["fid"], "fid_s": rec["total_time"], "fid_launches": fid_launches}
+
+
+def phase_arch(smi: str) -> dict:
+    import os
+    import tempfile
+
+    from ide3d_tpu_torch.apps import common
+    from ide3d_tpu_torch.models import layers_sg3
+    from ide3d_tpu_torch.models.generator import GeneratorConfig, Ide3dGenerator
+    from ide3d_tpu_torch.render import renderer
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        snaps = {k: os.path.join(root, k) for k in ("hybrid", "sg3", "encoder")}
+        cfgs = {"hybrid": GeneratorConfig(use_feature_volume=True),
+                "sg3": GeneratorConfig(sr_arch="sg3"), "encoder": GeneratorConfig(use_encoder=True)}
+        for k, path in snaps.items():
+            write_snapshot(path, cfgs[k], seed=0)
+
+        G = common.load_generator(snaps["hybrid"], "cuda")
+        if G.cfg != cfgs["hybrid"] or G.synthesis.feature_volume is None:
+            raise RuntimeError(f"hybrid snapshot read back as {G.cfg}")
+        hyb = arch_frames(G, "hybrid")
+        # The flagship in the same call: its frames, then the batch-3 frame of
+        # each G in turns (flagship, hybrid, hybrid, flagship, twice).
+        G_flag = Ide3dGenerator(GeneratorConfig()).init(seed=0).to("cuda").eval()
+        flag = arch_frames(G_flag, "flagship")
+        ab = {"flagship": [], "hybrid": []}
+        for k in ("flagship", "hybrid", "hybrid", "flagship") * 2:
+            ab[k].append(event_median_ms((flag if k == "flagship" else hyb)["frame"], ARCH_RUNS))
+        with torch.inference_mode():
+            ws = hyb.pop("ws")
+            hyb["volume_ms"] = event_median_ms(lambda: G.synthesis.volume(ws), ARCH_RUNS)
+        hyb["grid_sample_3d"] = op_ms(renderer, "grid_sample_3d", hyb.pop("frame"))
+        hyb["fp32"] = fp32_card_vs_cpu(GeneratorConfig(use_feature_volume=True, dtype="float32"), 0,
+                                       "hybrid")
+        pnt = arch_painter(G)
+        nad = arch_nada(G)
+        del G
+        fine = arch_fine_steps(G_flag, flag.pop("ws"))
+        del G_flag, flag["frame"]
+
+        G = common.load_generator(snaps["sg3"], "cuda")
+        if G.cfg != cfgs["sg3"] or G.synthesis.sg3_sr is None:
+            raise RuntimeError(f"sg3 snapshot read back as {G.cfg}")
+        sg3 = arch_frames(G, "sg3")
+        sg3["filtered_lrelu"] = op_ms(layers_sg3, "filtered_lrelu", sg3.pop("frame"))
+        del sg3["ws"]
+        del G
+        sg3["fp32"] = fp32_card_vs_cpu(GeneratorConfig(sr_arch="sg3", dtype="float32"), 0, "sg3")
+        enc = arch_encoder(snaps["encoder"], root)
+
+    def frames(r):
+        return {f"batch_{B}": {"median_ms": round(r[B]["median_ms"], 3),
+                               "range_ms": [round(min(r[B]["ms"]), 3), round(max(r[B]["ms"]), 3)],
+                               "peak_gib": round(r[B]["peak_gib"], 3)} for B in (1, 3)}
+
+    print(f"arch: hybrid GeneratorConfig(use_feature_volume=True) bf16 96+96 ({smi}): "
+          f"frames {json.dumps(frames(hyb))} (event ms over {ARCH_RUNS}, K1 once a frame), the "
+          f"volume alone {hyb['volume_ms']:.3f} ms; K1 vs plain on a frame's inputs "
+          f"{hyb['k1_err']:.3g}, with the density moved to a median of {SIGMA_MEDIAN:g} "
+          f"(by {hyb['sigma_shift']:+.4g}; the flagship's by {flag['sigma_shift']:+.4g}) "
+          f"{hyb['k1_err_moved']:.3g}; grid_sample_3d in a "
+          f"batch-3 frame: {hyb['grid_sample_3d'][0]} calls, {hyb['grid_sample_3d'][1]:.3f} ms alone; "
+          f"fp32 cuda vs cpu {hyb['fp32']['err']} at scale "
+          f"{hyb['fp32']['scale']} (limit 3e-5 x scale); Painter round (wall ms, K1, "
+          f"generate_planes) {pnt['rows']}, {pnt['frames']} cached-table frames within "
+          f"{pnt['gap']} uint8 level of G.synthesis; NADA step (geometry frozen, batch 2) "
+          f"{nad['ms']:.3f} ms, K1 {nad['launches']}, the volume without gradient", flush=True)
+    print(f"arch: flagship GeneratorConfig() frames in this call {json.dumps(frames(flag))}; "
+          f"batch-3 frames in turns, event ms (medians of {ARCH_RUNS}) flagship "
+          f"{[round(t, 3) for t in ab['flagship']]}, hybrid {[round(t, 3) for t in ab['hybrid']]}; "
+          f"fine_steps on it, the three-yaw batch: event ms {json.dumps({k: [round(t, 3) for t in v] for k, v in fine['ms'].items()})} (in turns 96, 64, 64, 96); "
+          f"K1 at halves 64+128 vs plain {fine['k1_err']:.3g}; sg3 GeneratorConfig(sr_arch=sg3) "
+          f"bf16: frames {json.dumps(frames(sg3))}, K1 vs plain {sg3['k1_err']:.3g}, filtered_lrelu "
+          f"in a batch-3 frame: {sg3['filtered_lrelu'][0]} calls, {sg3['filtered_lrelu'][1]:.3f} ms "
+          f"alone; fp32 cuda vs "
+          f"cpu {sg3['fp32']['err']} at scale {sg3['fp32']['scale']}", flush=True)
+    print(f"arch: encoder GeneratorConfig(use_encoder=True): G(cond_img=its render) "
+          f"{enc['cond_ms']:.3f} ms (camera head {[round(v, 4) for v in enc['cam']]}), K1 "
+          f"{enc['cond_launches']}; infer_face_animation_avatar --style-image "
+          f"{ARCH_AVATAR_FRAMES} frames in {enc['avatar_s']:.2f} s, K1 and its backward "
+          f"{enc['avatar_launches']}; "
+          f"calc_metric fid cond_render ({ARCH_FID_ITEMS} items, {ARCH_FID_IMAGES} labelled "
+          f"512² images, Inception deterministic init, TF32 on) {enc['fid']:.6g} in "
+          f"{enc['fid_s']:.1f} s, K1 {enc['fid_launches']}; phase 13 wall "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return {"hybrid": hyb, "sg3": sg3, "painter": pnt, "nada": nad, "fine": fine, "encoder": enc,
+            "flagship": flag, "ab": ab,
+            "k1_err": max(hyb["k1_err"], sg3["k1_err"], fine["k1_err"], flag["k1_err"],
+                          hyb["k1_err_moved"], sg3["k1_err_moved"], flag["k1_err_moved"])}
+
+
+def arch_launches(arch: dict, i: int) -> dict:
+    """Phase 13's launches of K1 (i = 0) or its backward (i = 1) per pass of
+    each of its paths, as counted there."""
+    enc = arch["encoder"]
+    return {**{f"{k}_frame_b{B}": arch[k][B]["launches_per_frame"][i]
+               for k in ("hybrid", "sg3") for B in (1, 3)},
+            "fine_64_128_frame": arch["fine"]["launches"][i],
+            "cond_img_frame": enc["cond_launches"][i],
+            "avatar_frame": enc["avatar_launches"][i] / ARCH_AVATAR_FRAMES,
+            "cond_render_fid_per_batch": enc["fid_launches"][i] * METRIC_BATCH / ARCH_FID_ITEMS,
+            "hybrid_painter_round": arch["painter"]["per_round"][i],
+            "hybrid_nada_step": arch["nada"]["launches"][i]}
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
@@ -3433,6 +3875,7 @@ def main() -> None:
     inv = phase_inversion(smi.splitlines()[0])
     ed = phase_editing(smi.splitlines()[0])
     pre = phase_preprocess(smi.splitlines()[0])
+    arch = phase_arch(smi.splitlines()[0])
     main_path, b1 = k["timing"][3], k["timing"][1]  # the frame runs K1 at B=3
     kb = tr["k1_backward"]
     print(json.dumps({"kernels": [{
@@ -3444,7 +3887,7 @@ def main() -> None:
         "max_abs_err": max(k["max_abs_err"], f["frame_err"], off["mesh"]["k1_err"],
                            *(v["k1_err"] for v in off["video"].values()),
                            *met["counted"]["k1_err"].values(), inv["k1"]["fwd_err"],
-                           ed["k1"]["fwd_err"], ed["viz"]["k1"]["fwd_err"]),
+                           ed["k1"]["fwd_err"], ed["viz"]["k1"]["fwd_err"], arch["k1_err"]),
         "ms": main_path["ms"],
         "plain_ms": main_path["plain_ms"],
         "eager_ms": main_path["eager_ms"],
@@ -3477,6 +3920,11 @@ def main() -> None:
         "editing_max_abs_err": {"mapper_step": ed["k1"]["fwd_err"],
                                 "viz_48_48": ed["viz"]["k1"]["fwd_err"]},
         "preprocess_launches": preprocess_launches(pre, 0),
+        "arch_launches": arch_launches(arch, 0),
+        "arch_max_abs_err": {"hybrid_b3": arch["hybrid"]["k1_err"],
+                             "hybrid_b3_density_moved": arch["hybrid"]["k1_err_moved"],
+                             "sg3_b3": arch["sg3"]["k1_err"],
+                             "fine_64_128": arch["fine"]["k1_err"]},
     }, {
         "name": "sort_integrate_backward",
         "route": "cuda",
@@ -3505,6 +3953,7 @@ def main() -> None:
         "editing_step_ms": ed["median_ms"],
         "preprocess_launches": preprocess_launches(pre, 1),
         "preprocess_step_ms": pre["step_median_ms"],
+        "arch_launches": arch_launches(arch, 1),
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

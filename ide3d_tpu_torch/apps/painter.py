@@ -11,7 +11,9 @@ Counterpart of ide3d_tpu/apps/painter.py. The reference product loop
 Every G pass is one `G.synthesis` call, so it ends in one K1 launch (the fine
 composite of `render_fine`). The session keeps two caches:
   * a plane cache: the planes of the current latent, as the renderer's table,
-    so that a pose-only view skips `generate_planes`,
+    with the hybrid G's feature volume (`plane_table`), so that a pose-only
+    view skips `generate_planes`. The JAX session turns its plane cache off for
+    a hybrid G; carrying the volume keeps the cache and renders the same frame,
   * a frame cache: the last frame rendered of (w, camera). The next edit's
     first G pass would render exactly that frame, so a stroke at an unchanged
     view costs 1 x G + E instead of 2 x G + E.
@@ -149,8 +151,8 @@ class PainterSession:
         return self.camera(yaw, pitch), self.camera(yaw, pitch, device="cpu").numpy()
 
     def _planes(self, ws: torch.Tensor) -> torch.Tensor:
-        """The plane cache: the table of `ws`, made again only for another latent
-        (compared by identity)."""
+        """The plane cache: the table (and feature volume) of `ws`, made again
+        only for another latent (compared by identity)."""
         if self._table_w is not ws:
             self._table = self.G.synthesis.plane_table(ws)
             self._table_w = ws

@@ -7,10 +7,10 @@ geometry rows from one seed, the appearance rows from another), truncation,
 pose (yaw, pitch, fov), the sampling budget and the render type (image | seg
 | depth | normals | raw), with a backbone cache: the planes of the current
 (seed, stylemix seed and flags, psi, cutoff) are kept as the renderer's table
-(`plane_table`), so a pose change runs the renderer and the superres stack
-alone. Every render is one G pass (one K1 launch) at the state's budget,
-48 + 48 samples by default; seg, depth, normals and raw are the 64² render's.
-Like the JAX package, the render always uses noise_mode 'const':
+(without the feature volume, as in the JAX package), so a pose change runs
+the renderer and the superres stack alone. Every render is one G pass (one
+K1 launch) at the state's budget, 48 + 48 samples by default; seg, depth,
+normals and raw are the 64² render's. Like the JAX package, the render always uses noise_mode 'const':
 `VizState.noise_mode` is not read.
 
 `capture_layers` returns every vb block's outputs, the renderer's feature,
@@ -98,6 +98,13 @@ class VizRenderer:
 
     # -------------------------------------------------------------------- frame
 
+    def _planes(self, ws: torch.Tensor) -> tuple:
+        """The table of `ws` without a feature volume: the JAX viz renderer
+        samples the planes alone, also for a hybrid G (ROADMAP Queue 3)."""
+        S = self.G.synthesis
+        img_v, seg_v = S.generate_planes(ws, "const")
+        return S.renderer.build_table(img_v.to(S.dtype), seg_v.to(S.dtype)), None
+
     @torch.inference_mode()
     def render(self, st: VizState) -> Tuple[np.ndarray, dict]:
         """Returns (uint8 image [H, W, 3], info with render_time and plane_cached)."""
@@ -107,7 +114,7 @@ class VizRenderer:
         cache_hit = cache_key == self._plane_cache_key
         if not cache_hit:
             self._ws = self._make_ws(st)
-            self._table = self.G.synthesis.plane_table(self._ws)
+            self._table = self._planes(self._ws)
             self._plane_cache_key = cache_key
         out = self.G.synthesis(self._ws, self._camera(st), render_params=self._params(st),
                                return_all=True, table=self._table)
@@ -160,8 +167,9 @@ class VizRenderer:
         for res in S.block_resolutions:
             hooks.append(getattr(S, f"b{res}").register_forward_hook(tap(f"b{res}", ("x", "img"))))
         try:
-            out = S(self._make_ws(st), self._camera(st), render_params=self._params(st),
-                    return_all=True)
+            ws = self._make_ws(st)
+            out = S(ws, self._camera(st), render_params=self._params(st), return_all=True,
+                    table=self._planes(ws))
         finally:
             for h in hooks:
                 h.remove()

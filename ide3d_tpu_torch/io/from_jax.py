@@ -6,9 +6,12 @@ match the tree's keys, so each entry of the module's state_dict is looked up
 by its dotted path and converted:
 
   * 4-D conv weights      HWIO [kh, kw, I, O] -> OIHW [O, I, kh, kw]
+  * 5-D conv weights      DHWIO [kd, kh, kw, I, O] -> OIDHW (the feature volume)
   * FC `weight`           [in, out]           -> [out, in]
   * block `const`         [H, W, C]           -> [C, H, W]
-  * everything else (biases, noise, w_avg, renderer decoder) as it is.
+  * volume `const`        [1, D, H, W, C]     -> [1, C, D, H, W]
+  * everything else (biases, noise, w_avg, magnitude_ema, renderer decoder)
+    as it is.
 
 Every tensor of the module must be found with the expected shape, and every
 leaf of the tree must be used; anything else raises. The same holds for the
@@ -42,6 +45,8 @@ def _convert(name: str, a: np.ndarray) -> np.ndarray:
     leaf = name.rsplit(".", 1)[-1]
     if a.ndim == 4:
         return a.transpose(3, 2, 0, 1)
+    if a.ndim == 5:
+        return a.transpose(0, 4, 1, 2, 3) if leaf == "const" else a.transpose(4, 3, 0, 1, 2)
     if leaf == "weight" and a.ndim == 2:
         return a.T
     if leaf == "const" and a.ndim == 3:

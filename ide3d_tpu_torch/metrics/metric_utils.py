@@ -104,8 +104,8 @@ class MetricOptions:
     batch_size: int = 8
     cache_dir: Optional[str] = None
     seed: int = 0
-    # conditional-render evaluation (reference metric_utils.py:70-81): needs
-    # GeneratorConfig.use_encoder, which the port does not have yet.
+    # conditional-render evaluation (reference metric_utils.py:70-81): G renders
+    # the dataset's images through its built-in encoder (GeneratorConfig.use_encoder).
     cond_render: bool = False
     device: torch.device | str = "cuda"
 
@@ -191,17 +191,26 @@ def sample_labels(opts: MetricOptions, rs: np.random.RandomState, n: int) -> np.
 def compute_feature_stats_for_generator(
     opts: MetricOptions, capture_all=False, capture_mean_cov=True
 ) -> FeatureStats:
-    if opts.cond_render:
-        raise NotImplementedError(
-            "cond_render needs GeneratorConfig.use_encoder, not ported yet (ROADMAP Queue 1 [11])")
-    stats = FeatureStats(capture_all, capture_mean_cov, max_items=opts.num_items)
     G, dev = opts.G, opts.device
+    if opts.cond_render:
+        # G(z, c, cond_img=<a dataset image>): ws from G's encoder, rendered at
+        # c; the condition images are a second draw of dataset indices.
+        if opts.dataset is None:
+            raise ValueError("cond_render needs a dataset")
+        if not G.cfg.use_encoder:
+            raise ValueError("cond_render requires GeneratorConfig.use_encoder")
+    stats = FeatureStats(capture_all, capture_mean_cov, max_items=opts.num_items)
     rs = np.random.RandomState(opts.seed)
     B = opts.batch_size
     with torch.inference_mode():
         while not stats.is_full():
             z = torch.as_tensor(rs.randn(B, G.cfg.z_dim), dtype=torch.float32, device=dev)
             c = torch.as_tensor(sample_labels(opts, rs, B), device=dev)
-            img = G(z, c).float()
+            cond = None
+            if opts.cond_render:
+                idx = rs.randint(len(opts.dataset), size=B)
+                cond = torch.from_numpy(np.stack([opts.dataset[int(i)][0] for i in idx])).to(dev)
+                cond = cond.float() / 127.5 - 1.0
+            img = G(z, c, cond_img=cond).float()
             stats.append(opts.detector(img).float().cpu().numpy())
     return stats

@@ -6,8 +6,11 @@ Counterpart of ide3d_tpu/models/generator.py, with the same API shape:
     G.synthesis(ws, c, render_params=..., noise_mode=..., return_seg=False,
                 return_raw=False, return_all=False, table=None)
         -> img | (img, seg) | (img, img_raw) | dict
-    G.synthesis.plane_table(ws) -> the planes as the renderer's table, which
-        `table=` takes to render another pose of the same latent
+    G.synthesis.plane_table(ws) -> (the planes as the renderer's table, the
+        feature volume or None), which `table=` takes to render another pose
+        of the same latent
+    G(z, c, cond_img=img) -> the frame of G.encode(img) (use_encoder), at c or,
+        when c is None, at the camera of the encoder's yaw/pitch head
 
 c is the 25-dim label (flattened 4x4 cam2world ++ 3x3 intrinsics); images come
 back NHWC in fp32, as in the JAX package. The w+ rows are laid out as there:
@@ -28,22 +31,36 @@ card) and composites in fp32 (K1 for the merged fine composite); the raw-RGB
 head and the superres stack run next, and the 19-class seg is upsampled
 bilinearly to the output size.
 
-Not ported yet, and so not in GeneratorConfig: the SG3 superres stack
-(`sr_arch`), the feature volume and the built-in encoder.
+The optional architectures of the JAX GeneratorConfig:
+  * `use_feature_volume`: the hybrid tri-plane/voxel representation. A
+    FeatureVolume (models/feature_volume.py) conditioned on ws[:, 0] gives a
+    [B, Cf, r, r, r] grid whose trilinear samples are added to the tri-plane
+    features before the decoder, on every render;
+  * `sr_arch="sg3"`: the alias-free superres stack, 2 * len(block_resolutions)
+    SynthesisLayer3s and a ToRGB (models/layers_sg3.py) on the same w rows as
+    the SG2 skip blocks, so num_ws does not change;
+  * `use_encoder`: the built-in image encoder (models/encoder.Encoder at the
+    output size, num_ws rows, fp32) and, with `encoder_predicts_camera`, an FC
+    yaw/pitch head; `encode` adds w_avg.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..render.camera import create_cam2world_matrix, make_label_25, normalize_vecs
 from ..render.renderer import RenderParams, TriplaneRenderer
 from .blocks import DTYPES, SegSynthesisBlock, SynthesisBlock
-from .layers import ToRGBLayer, init_seeded
+from .encoder import Encoder
+from .feature_volume import FeatureVolume
+from .layers import FullyConnectedLayer, ToRGBLayer, init_seeded
+from .layers_sg3 import SynthesisLayer3
 from .mapping import MappingNetwork
 
 
@@ -64,6 +81,15 @@ class GeneratorConfig:
     sr_channel_max: int = 256
     dtype: str = "bfloat16"  # compute dtype of the conv stacks and plane sampling
     render: RenderParams = RenderParams()
+    # The built-in image encoder (ws and, optionally, a yaw/pitch head from an image).
+    use_encoder: bool = False
+    encoder_predicts_camera: bool = True
+    # The hybrid tri-plane/voxel representation: a FeatureVolume at fv_resolution^3.
+    use_feature_volume: bool = False
+    fv_resolution: int = 32
+    fv_base_channels: int = 128
+    # The superres architecture: "sg2" (skip blocks) or "sg3" (alias-free layers).
+    sr_arch: str = "sg2"
     # Reference-checkpoint compatibility: the two-conv vb interior with the
     # reference's w-row slicing; the raw image from a w-consuming head ("torgb")
     # or as the first 3 feature channels ("slice"); explicit per-block
@@ -115,6 +141,8 @@ class Ide3dSynthesisNetwork(nn.Module):
         super().__init__()
         if cfg.raw_head not in ("torgb", "slice"):
             raise ValueError(f"raw_head must be 'torgb' or 'slice', got {cfg.raw_head!r}")
+        if cfg.sr_arch not in ("sg2", "sg3"):
+            raise ValueError(f"sr_arch must be 'sg2' or 'sg3', got {cfg.sr_arch!r}")
         self.cfg = cfg
         self.dtype = DTYPES[cfg.dtype]
         vbr, srr = cfg.voxel_block_resolutions, cfg.block_resolutions
@@ -129,12 +157,52 @@ class Ide3dSynthesisNetwork(nn.Module):
         self.raw_rgb = None
         if cfg.raw_head == "torgb":
             self.raw_rgb = ToRGBLayer(cfg.feature_channels, cfg.img_channels, cfg.w_dim)
-        for i, res in enumerate(srr):
-            setattr(self, f"b{res}", SynthesisBlock(
-                in_channels=cfg.feature_channels if i == 0 else cfg.sr_channels(srr[i - 1]),
-                out_channels=cfg.sr_channels(res), w_dim=cfg.w_dim, resolution=res,
-                img_channels=cfg.img_channels,
-                up=1 if (i == 0 and res == cfg.render_size) else 2, dtype=cfg.dtype))
+        if cfg.sr_arch == "sg2":
+            for i, res in enumerate(srr):
+                setattr(self, f"b{res}", SynthesisBlock(
+                    in_channels=cfg.feature_channels if i == 0 else cfg.sr_channels(srr[i - 1]),
+                    out_channels=cfg.sr_channels(res), w_dim=cfg.w_dim, resolution=res,
+                    img_channels=cfg.img_channels,
+                    up=1 if (i == 0 and res == cfg.render_size) else 2, dtype=cfg.dtype))
+        self.feature_volume = None
+        if cfg.use_feature_volume:
+            self.feature_volume = FeatureVolume(
+                feat_res=cfg.fv_resolution, base_channels=cfg.fv_base_channels,
+                output_channels=cfg.feature_channels, z_dim=cfg.w_dim)
+        self.sg3_sr = self._sg3_layers() if cfg.sr_arch == "sg3" else None
+
+    def _sg3_layers(self) -> nn.Module:
+        """The alias-free superres stack (JAX `_sg3_layers`): a refine layer at
+        render_size, then an (upsample, refine) pair per octave, padded with
+        refines at the output size to 2 * len(block_resolutions) layers, and a
+        1x1 ToRGB; cutoff 0.4 and half-width 0.1 of each sampling rate, the
+        channels of the nearest superres resolution."""
+        cfg = self.cfg
+        rs, R, srr = cfg.render_size, cfg.img_resolution, cfg.block_resolutions
+        rates = [rs]
+        while rates[-1] < R:
+            rates.append(rates[-1] * 2)
+        pairs = [(rs, rs)]
+        for r in rates[:-1]:
+            pairs += [(r, r * 2), (r * 2, r * 2)]
+        n_convs = 2 * len(srr)
+        pairs = (pairs + [(R, R)] * n_convs)[:n_convs]
+
+        def layer(ri, ro, in_ch, out_ch, is_torgb=False):
+            return SynthesisLayer3(
+                w_dim=cfg.w_dim, is_torgb=is_torgb, in_channels=in_ch, out_channels=out_ch,
+                in_size=ri, out_size=ro, in_sampling_rate=float(ri), out_sampling_rate=float(ro),
+                in_cutoff=0.4 * ri, out_cutoff=0.4 * ro,
+                in_half_width=0.1 * ri, out_half_width=0.1 * ro)
+
+        stack, in_ch = nn.Module(), cfg.feature_channels
+        for i, (ri, ro) in enumerate(pairs):
+            out_ch = cfg.sr_channels(min(srr, key=lambda b: abs(b - ro)))
+            setattr(stack, f"layer{i}", layer(ri, ro, in_ch, out_ch))
+            in_ch = out_ch
+        stack.num_layers = n_convs
+        stack.torgb = layer(R, R, in_ch, cfg.img_channels, is_torgb=True)
+        return stack
 
     @property
     def voxel_block_resolutions(self) -> tuple:
@@ -211,6 +279,11 @@ class Ide3dSynthesisNetwork(nn.Module):
             base = self._vb_num_conv_total + (1 if self.raw_rgb is not None else 0)
         else:
             base = len(self.voxel_block_resolutions) + 2  # first superres row (= 9)
+        if self.sg3_sr is not None:
+            x = feature.to(self.dtype)
+            for i in range(self.sg3_sr.num_layers):
+                x = getattr(self.sg3_sr, f"layer{i}")(x, ws[:, base + i])
+            return self.sg3_sr.torgb(x, ws[:, base + self.sg3_sr.num_layers]).float()
         x, img = feature, img_raw
         for i, res in enumerate(self.block_resolutions):
             r0 = base + 2 * i
@@ -218,15 +291,24 @@ class Ide3dSynthesisNetwork(nn.Module):
             x, img = getattr(self, f"b{res}")(x, img, ws3, noise_mode=noise_mode, generator=generator)
         return img
 
+    def volume(self, ws: torch.Tensor) -> Optional[torch.Tensor]:
+        """The hybrid G's feature volume of `ws` (conditioned on row 0) in the
+        compute dtype, [B, Cf, r, r, r]; None without use_feature_volume."""
+        if self.feature_volume is None:
+            return None
+        return self.feature_volume(ws[:, 0].float()).to(self.dtype)
+
     def plane_table(
         self, ws: torch.Tensor, noise_mode: str = "const",
         generator: Optional[torch.Generator] = None,
-    ) -> torch.Tensor:
-        """The planes of `ws` in the compute dtype, as the renderer's table
-        [B, H, W, 3*(Cf+Cs)]: everything of the frame that depends on the latent
-        alone, so a caller may keep it across poses (the Painter's plane cache)."""
+    ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(the planes of `ws` in the compute dtype as the renderer's table
+        [B, H, W, 3*(Cf+Cs)], the feature volume or None): everything of the
+        frame that depends on the latent alone, so a caller may keep it across
+        poses (the Painter's plane cache)."""
         img_v, seg_v = self.generate_planes(ws, noise_mode, generator)
-        return self.renderer.build_table(img_v.to(self.dtype), seg_v.to(self.dtype))
+        return (self.renderer.build_table(img_v.to(self.dtype), seg_v.to(self.dtype)),
+                self.volume(ws))
 
     def forward(
         self,
@@ -238,12 +320,13 @@ class Ide3dSynthesisNetwork(nn.Module):
         return_seg: bool = False,
         return_raw: bool = False,
         return_all: bool = False,
-        table: Optional[torch.Tensor] = None,
+        table: Optional[tuple] = None,
     ):
         """With a generator, noise_mode='random' draws the layer noise and the
         renderer jitters depths and samples the importance pass at random;
         without one the frame is deterministic. `table` is `plane_table(ws)`
-        made earlier; with it the planes are not generated again."""
+        made earlier; with it neither the planes nor the volume are made
+        again (its volume is what the frame samples, None for none)."""
         cfg = self.cfg
         rp = render_params or cfg.render
         if rp.img_size != cfg.render_size:
@@ -252,11 +335,10 @@ class Ide3dSynthesisNetwork(nn.Module):
             raise ValueError(f"ws has {ws.shape[1]} rows, generator expects {self.num_ws}")
         noise_gen = generator if noise_mode == "random" else None
 
-        if table is None:
-            table = self.plane_table(ws, noise_mode, noise_gen)
+        planes, volume = self.plane_table(ws, noise_mode, noise_gen) if table is None else table
         cam2world = c[:, :16].reshape(-1, 4, 4).float()
-        rout = self.renderer.render_fine(
-            self.renderer.render_coarse(None, None, cam2world, rp, generator, table=table), rp)
+        rout = self.renderer.render_fine(self.renderer.render_coarse(
+            None, None, cam2world, rp, generator, table=planes, volume=volume), rp)
 
         feature = rout["feature"].permute(0, 3, 1, 2)  # [B, Cf, r, r] fp32
         if self.raw_rgb is None:  # raw_head="slice": the first 3 feature channels
@@ -293,7 +375,8 @@ class Ide3dSynthesisNetwork(nn.Module):
 
 
 class Ide3dGenerator(nn.Module):
-    """mapping + synthesis; weights come from `init(seed)` or io/from_jax."""
+    """mapping + synthesis (+ the built-in encoder); weights come from
+    `init(seed)` or io/from_jax."""
 
     def __init__(self, cfg: GeneratorConfig):
         super().__init__()
@@ -302,6 +385,12 @@ class Ide3dGenerator(nn.Module):
         self.mapping = MappingNetwork(z_dim=cfg.z_dim, c_dim=cfg.c_dim, w_dim=cfg.w_dim,
                                       num_ws=self.synthesis.num_ws,
                                       num_layers=cfg.mapping_num_layers)
+        self.encoder = self.encoder_cam = None
+        if cfg.use_encoder:
+            self.encoder = Encoder(size=cfg.img_resolution, n_latents=self.num_ws,
+                                   w_dim=cfg.w_dim, input_dim=cfg.img_channels)
+            if cfg.encoder_predicts_camera:
+                self.encoder_cam = FullyConnectedLayer(self.num_ws * cfg.w_dim, 2)
 
     @property
     def num_ws(self) -> int:
@@ -329,13 +418,46 @@ class Ide3dGenerator(nn.Module):
         self.mapping.w_avg.zero_()
         return init_seeded(self, seed)
 
+    def encode(self, img: torch.Tensor) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """img [B, R, R, 3] in [-1, 1] -> (ws [B, num_ws, w_dim] = encoder + w_avg,
+        the yaw/pitch offsets [B, 2] or None) (networks.py:1244-1251)."""
+        if self.encoder is None:
+            raise ValueError("G has no encoder: GeneratorConfig.use_encoder is False")
+        ws = self.encoder(img) + self.mapping.w_avg[None, None, :]
+        cam = None if self.encoder_cam is None else self.encoder_cam(ws.reshape(ws.shape[0], -1))
+        return ws, cam
+
+    @staticmethod
+    def camera_from_yaw_pitch(cam: torch.Tensor) -> torch.Tensor:
+        """The encoder head's [B, 2] offsets around pi/2 -> the 25-dim label of
+        a camera at radius 2.7 looking at the origin (the JAX G's cond_img path)."""
+        radius = 2.7
+        yaw = cam[:, 0] + math.pi / 2
+        pitch = (cam[:, 1] + math.pi / 2).clamp(1e-5, math.pi - 1e-5)
+        origins = torch.stack([radius * torch.sin(pitch) * torch.cos(yaw), radius * torch.cos(pitch),
+                               radius * torch.sin(pitch) * torch.sin(yaw)], dim=-1)
+        return make_label_25(create_cam2world_matrix(normalize_vecs(-origins), origins))
+
     def forward(
         self,
-        z: torch.Tensor,
-        c: torch.Tensor,
+        z: Optional[torch.Tensor] = None,
+        c: Optional[torch.Tensor] = None,
         truncation_psi: float = 1.0,
         truncation_cutoff: Optional[int] = None,
+        cond_img: Optional[torch.Tensor] = None,
         **synthesis_kwargs,
     ):
-        ws = self.mapping(z, c, truncation_psi=truncation_psi, truncation_cutoff=truncation_cutoff)
+        """The frame of `cond_img` through the encoder, or of the mapped `z`
+        (networks.py:1244-1258). With cond_img and no `c`, the camera comes
+        from the encoder's yaw/pitch head."""
+        if cond_img is not None:
+            ws, cam = self.encode(cond_img)
+            if c is None:
+                if cam is None:
+                    raise ValueError("cond_img without c needs encoder_predicts_camera")
+                c = self.camera_from_yaw_pitch(cam)
+        else:
+            if z is None:
+                raise ValueError("G needs z or cond_img")
+            ws = self.mapping(z, c, truncation_psi=truncation_psi, truncation_cutoff=truncation_cutoff)
         return self.synthesis(ws, c, **synthesis_kwargs)

@@ -13,6 +13,12 @@ The merged composite is K1 (ops/ray_march.sort_integrate) for every option
 hand-written backward on the card, its plain version on the CPU. The
 importance depths are detached, as the JAX render stop-gradients them. Planes keep the JAX layout
 [B, H, W, 3*C]; randomness enters through an explicit torch.Generator.
+
+The hybrid generator's feature volume ([B, C, D, H, W], `volume=`) is sampled
+trilinearly at the same points, and its features are added to the tri-plane
+features before the decoder, in the table's dtype; the fine pass takes it
+from the coarse state. `RenderParams.fine_steps` sets the importance pass's
+depth count (None: num_steps), so K1 composites halves of S and F samples.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ import torch
 from torch import nn
 
 from ..ops.bias_act import bias_act
-from ..ops.grid_sample import sample_from_triplane
+from ..ops.grid_sample import grid_sample_3d, sample_from_triplane
 from ..ops.ray_march import sort_integrate
 from .camera import get_initial_rays, perturb_z_vals, transform_rays_to_world
 from .integration import integrate_rays, sample_pdf
@@ -36,7 +42,10 @@ class RenderParams:
     """Static rendering configuration; the pose comes from cam2world."""
 
     img_size: int = 64
-    num_steps: int = 96  # coarse steps, and as many importance samples
+    num_steps: int = 96  # coarse steps
+    # importance samples of the hierarchical pass; None = num_steps (the
+    # reference's 1:1 split), e.g. 64 + 128 spends the same 192 samples a ray
+    fine_steps: Optional[int] = None
     fov: float = 18.0
     ray_start: float = 2.25
     ray_end: float = 3.3
@@ -94,17 +103,23 @@ class TriplaneRenderer(nn.Module):
         table = torch.cat([img_v.reshape(B, H, W, 3, fc), seg_v.reshape(B, H, W, 3, sc)], dim=-1)
         return table.reshape(B, H, W, 3 * (fc + sc))
 
-    def sample_table(self, table: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
-        """sample_voxel from a table made once (build_table), in its dtype."""
+    def sample_table(self, table: torch.Tensor, coords: torch.Tensor,
+                     volume: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """sample_voxel from a table made once (build_table), in its dtype;
+        the volume's features, when given, are added before decoding."""
         fc = self.feature_channels
         sampled = sample_from_triplane(coords, table)
         feat, seg = sampled[..., :fc], sampled[..., fc:]
+        if volume is not None:
+            feat = feat + grid_sample_3d(volume, coords).to(feat.dtype)
         decoded = self.decode_features(feat)
         return torch.cat([decoded[..., :fc], seg, decoded[..., -1:]], dim=-1)
 
-    def sample_voxel(self, img_v: torch.Tensor, seg_v: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
-        """coords [B,N,3] world -> [B,N,52], layout [feat(32) | seg(19) | sigma(1)]."""
-        return self.sample_table(self.build_table(img_v, seg_v), coords)
+    def sample_voxel(self, img_v: torch.Tensor, seg_v: torch.Tensor, coords: torch.Tensor,
+                     volume: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """coords [B,N,3] world -> [B,N,52], layout [feat(32) | seg(19) | sigma(1)];
+        `volume` is the hybrid generator's feature volume [B,C,D,H,W]."""
+        return self.sample_table(self.build_table(img_v, seg_v), coords, volume)
 
     # ----------------------------------------------------------------- rendering
 
@@ -116,6 +131,7 @@ class TriplaneRenderer(nn.Module):
         rp: RenderParams,
         generator: Optional[torch.Generator] = None,
         table: Optional[torch.Tensor] = None,  # build_table(img_v, seg_v), made earlier
+        volume: Optional[torch.Tensor] = None,  # the hybrid G's feature volume [B,C,D,H,W]
     ) -> dict:
         """Coarse pass (+ importance depths when hierarchical). Returns the state
         `render_fine` consumes. With no generator the pass is deterministic:
@@ -135,9 +151,10 @@ class TriplaneRenderer(nn.Module):
 
         if table is None:
             table = self.build_table(img_v, seg_v)
-        coarse = self.sample_table(table, pts.reshape(B, Rr * S, 3)).reshape(B, Rr, S, self.out_channels)
-        st = {"table": table, "coarse": coarse, "z_vals": z_vals, "rays_d_cam": rays_d_cam,
-              "dirs": dirs, "origins": origins, "generator": generator}
+        coarse = self.sample_table(table, pts.reshape(B, Rr * S, 3), volume)
+        coarse = coarse.reshape(B, Rr, S, self.out_channels)
+        st = {"table": table, "volume": volume, "coarse": coarse, "z_vals": z_vals,
+              "rays_d_cam": rays_d_cam, "dirs": dirs, "origins": origins, "generator": generator}
         if rp.hierarchical:
             _, _, weights = integrate_rays(coarse, rays_d_cam, z_vals, generator=generator,
                                            noise_std=rp.nerf_noise, clamp_mode=rp.clamp_mode,
@@ -145,10 +162,11 @@ class TriplaneRenderer(nn.Module):
             w_flat = weights.reshape(B * Rr, S)[:, 1:-1]
             z_flat = z_vals.reshape(B * Rr, S)
             z_mid = 0.5 * (z_flat[:, :-1] + z_flat[:, 1:])
-            fine_z = sample_pdf(z_mid, w_flat, S, generator=generator, det=generator is None)
+            F_ = rp.fine_steps if rp.fine_steps is not None else S
+            fine_z = sample_pdf(z_mid, w_flat, F_, generator=generator, det=generator is None)
             # Constants of the fine pass, as the JAX render stop-gradients them:
             # no gradient flows through the importance depths to the coarse weights.
-            st["fine_z"] = fine_z.reshape(B, Rr, S, 1).detach()
+            st["fine_z"] = fine_z.reshape(B, Rr, F_, 1).detach()
         return st
 
     def render_fine(self, st: dict, rp: RenderParams) -> dict:
@@ -163,7 +181,7 @@ class TriplaneRenderer(nn.Module):
             fine_z = st["fine_z"]
             F_ = fine_z.shape[2]
             fine_pts = st["origins"][:, :, None, :] + st["dirs"][:, :, None, :] * fine_z
-            fine = self.sample_table(st["table"], fine_pts.reshape(B, Rr * F_, 3))
+            fine = self.sample_table(st["table"], fine_pts.reshape(B, Rr * F_, 3), st["volume"])
             fine = fine.reshape(B, Rr, F_, self.out_channels)
             noise = None
             if gen is not None and rp.nerf_noise > 0:
@@ -197,6 +215,8 @@ class TriplaneRenderer(nn.Module):
         cam2world: torch.Tensor,
         rp: RenderParams,
         generator: Optional[torch.Generator] = None,
+        volume: Optional[torch.Tensor] = None,
     ) -> dict:
         """Volume-render feature image + semantics + depth at rp.img_size."""
-        return self.render_fine(self.render_coarse(img_v, seg_v, cam2world, rp, generator), rp)
+        return self.render_fine(
+            self.render_coarse(img_v, seg_v, cam2world, rp, generator, volume=volume), rp)

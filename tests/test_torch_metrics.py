@@ -421,12 +421,18 @@ def test_dataset_stats_are_cached_by_detector_weights(tmp_path):
 
 
 def test_cond_render_raises(bridged):
+    """cond_render needs a dataset and a G with the built-in encoder, as the
+    JAX package asserts (tests/test_torch_arch_apps.py holds it against JAX)."""
     from ide3d_tpu_torch.metrics.metric_utils import MetricOptions, \
         compute_feature_stats_for_generator
 
-    opts = MetricOptions(G=bridged[2], detector=make_detector("pixel", device="cpu"),
-                         num_items=2, batch_size=2, cond_render=True, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"\[11\]"):
+    det = make_detector("pixel", device="cpu")
+    opts = MetricOptions(G=bridged[2], detector=det, num_items=2, batch_size=2,
+                         cond_render=True, device="cpu")
+    with pytest.raises(ValueError, match="needs a dataset"):
+        compute_feature_stats_for_generator(opts)
+    opts.dataset = FakeDataset(n=4)
+    with pytest.raises(ValueError, match="use_encoder"):
         compute_feature_stats_for_generator(opts)
 
 

@@ -245,13 +245,59 @@ def test_jax_snapshot_converts(tmp_path):
     assert meta["step"] == 7 and meta["ada_p"] == 0.25
 
 
-def test_jax_snapshot_with_unported_option_refused(tmp_path):
-    """A configuration the port cannot host (sr_arch='sg3') is refused by name."""
+# Every option of the JAX GeneratorConfig and RenderParams off its default.
+ALL_OPTIONS = dict(use_encoder=True, encoder_predicts_camera=False, use_feature_volume=True,
+                   fv_resolution=8, fv_base_channels=16, sr_arch="sg3")
+
+
+@pytest.mark.parametrize("case", ["every_option_converts", "unported_field_refused"])
+def test_jax_snapshot_with_unported_option_refused(case, tmp_path):
+    """A snapshot that sets every option of the JAX config (the hybrid
+    volume, the SG3 superres, the built-in encoder without its camera head,
+    fine_steps) converts, and the port renders it and encodes as JAX does
+    (<= 1e-4 x max(1, |output|)). A JAX config field the port lacks is still
+    refused by name: a dataclass derived from the JAX config with one more
+    field, at a non-default value, through the tool's _unported."""
     from ide3d_tpu.io.checkpoint import save_checkpoint
     from ide3d_tpu.models import GeneratorConfig as JGeneratorConfig
+    from ide3d_tpu.models import Ide3dGenerator as JIde3d
+    from ide3d_tpu.render.renderer import RenderParams as JRenderParams
+    from ide3d_tpu_torch.apps.common import load_generator
+    from ide3d_tpu_torch.models.generator import GeneratorConfig
 
-    src = str(tmp_path / "jax_snap")
-    save_checkpoint(src, {"G_ema": {"w": np.zeros(2, np.float32)}},
-                    config=JGeneratorConfig(sr_arch="sg3"), step=0)
-    with pytest.raises(ValueError, match="sr_arch='sg3'"):
-        _tool().convert(src, str(tmp_path / "out"))
+    tool = _tool()
+    if case == "unported_field_refused":
+        extra = dataclasses.make_dataclass(
+            "GeneratorConfig", [("voxel_octree", int, dataclasses.field(default=0))],
+            bases=(JGeneratorConfig,), frozen=True)
+        assert tool._unported(extra(), GeneratorConfig, "") == []
+        assert tool._unported(extra(voxel_octree=3), GeneratorConfig, "") == ["voxel_octree=3"]
+        return
+
+    rp = JRenderParams(img_size=8, num_steps=4, fine_steps=6)
+    jcfg = JGeneratorConfig(img_resolution=32, render_size=8, plane_resolution=16,
+                            channel_base=512, channel_max=32, sr_channel_base=256,
+                            sr_channel_max=16, feature_channels=8, dtype="float32",
+                            render=rp, **ALL_OPTIONS)
+    jG = JIde3d(jcfg)
+    params = _np(jax.jit(jG.init)(jax.random.PRNGKey(0)))
+    src, dest = str(tmp_path / "jax_snap"), str(tmp_path / "port_snap")
+    save_checkpoint(src, {"G_ema": params}, config=jcfg, step=3)
+    tool.main(["--src", src, "--dest", dest])
+
+    G = load_generator(dest, device="cpu")
+    for k, v in ALL_OPTIONS.items():
+        assert getattr(G.cfg, k) == v, k
+    assert G.cfg.render.fine_steps == 6 and G.encoder_cam is None
+    c = np.asarray(jrender.CANONICAL_POSE_25, np.float32)[None]
+    z = np.random.RandomState(3).randn(1, 512).astype(np.float32)
+    img = np.random.RandomState(4).uniform(-1, 1, (1, 32, 32, 3)).astype(np.float32)
+    ws = np.asarray(jG.mapping(params["mapping"], z, c))
+    want = np.asarray(jax.jit(lambda p, w, c: jG.synthesis(p, w, c))(params["synthesis"], ws, c))
+    jws, _ = jG.encode(params, img)
+    with torch.no_grad():
+        got = G.synthesis(torch.tensor(ws), torch.from_numpy(c)).numpy()
+        tws, cam = G.encode(torch.from_numpy(img))
+    assert cam is None
+    _close("converted G, every option", got, want, tol=1e-4)
+    _close("converted encoder", tws.numpy(), np.asarray(jws), tol=1e-4)

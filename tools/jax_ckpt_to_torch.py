@@ -10,9 +10,10 @@ them is taken as one generator's parameters) go through
 same configuration, and `--dest` gets them as `state.pt` + `meta.json`
 (`ide3d_tpu_torch.io.checkpoint`), which `ide3d_tpu_torch.apps.common.
 load_generator` reads. The step and the scalar metadata (e.g. ada_p) are
-kept. The discriminator and the optimizer states are not carried over. A
-configuration that sets an option the port lacks (sr_arch, the feature
-volume, the built-in encoder, fine_steps) is refused.
+kept. The discriminator and the optimizer states are not carried over. Every
+option of the JAX GeneratorConfig and RenderParams converts (the hybrid
+feature volume, the SG3 superres stack, the built-in encoder and its camera
+head, fine_steps); a configuration field the port lacks is refused by name.
 
 Imports both packages; it runs on the host (numpy and the CPU).
 """
