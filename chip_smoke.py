@@ -1,9 +1,10 @@
 """Smoke run of the PyTorch port on one CUDA card: build, check and time K1,
 then drive the frame, the Painter, training, offline generation, the
 metric suite, inversion, latent editing, real-photo preprocessing, the
-legacy checkpoint import and the optional architectures (the hybrid feature
-volume, the SG3 superres, the built-in encoder, fine_steps) at the flagship
-width.
+legacy checkpoint import, the optional architectures (the hybrid feature
+volume, the SG3 superres, the built-in encoder, fine_steps) and the
+trainer's last features (path-length regularization through K1's double
+backward, wavelet ADA) at the flagship width.
 
     python3 chip_smoke.py
 
@@ -193,6 +194,24 @@ Phases, one line each; any failure ends the run with a non-zero exit:
                a frame), metric_main.calc_metric fid with cond_render at 32
                items on 32 labelled 512² images (Inception, TF32 on, K1 once a
                batch of 8).
+ 14. parity - K1's double backward against autograd (create_graph) through its
+               plain version at B=4, R=4096, S=96+96, C=51, fp32 and bf16
+               values, sorted and unsorted halves, each option: max abs err /
+               max|grad| of the value gradients and of the cotangent gradients
+               <= 1e-4 (fp32), <= 1e-2 (bf16); timed from CUDA graphs at the
+               training layout beside its byte bound, the plain version by
+               events. The tiny fp32 preset's PL penalty, mean length and G
+               gradients at given ws and y, card against CPU (<= 1e-4 x max),
+               K1 (1, 2, 1). GeneratorConfig() + Discriminator(img_channels=25),
+               bf16, batch 4, pl_weight 2: 5 steps (PL on 0 and 4, R1 on 0),
+               K1 (forward, backward, double backward) exactly (2, 3, 1) a PL
+               step and (1, 1, 0) a plain one, finite stats, pl_mean moved;
+               PL and plain steps in turns (event ms, peaks); wavelet_aa
+               against the bilinear warp at ada_p 0.2, an R1 and a plain step
+               each, in turns. tools/torch_make_synthetic_dataset.py writes 8
+               views at 512²; apps.train_gan.main --pl-weight 2 --wavelet-aa
+               --preset full --batch 4 for 2 steps on them (K1 (4, 4, 1) with
+               the grid's render) and --resume of its snapshot.
 Then one JSON line with the kernels, and last {"ok": true, "device": {...}}.
 In that line K1's `ms` and `plain_ms` are device times per call at B=3 from
 the CUDA graphs; `eager_ms` is the time between CUDA events around one eager
@@ -215,7 +234,13 @@ leg's loops and per _save_viz) to both and `preprocess_step_ms` to the
 backward's. Phase 13 adds `arch_launches` (per frame, Painter round, metric
 batch and NADA step of its paths, each read from the counts set to 0 just
 before that path and read just after it) to both and `arch_max_abs_err` to
-K1's; K1's `max_abs_err` also takes phase 13's.
+K1's; K1's `max_abs_err` also takes phase 13's. Phase 14 adds the third
+entry, `sort_integrate_double_backward`: `ms` its graph time at B=4, bf16,
+`plain_ms` the plain version's event time, `launches` the count over phase
+14's flagship steps, `max_abs_err` relative to max|grad| over every option,
+`train_step` the PL / plain and wavelet / bilinear step times and peaks; and
+`parity_launches` (the counts read on phase 14's PL and plain steps, each
+checked against PARITY_LAUNCHES) to the backward's and its own.
 """
 
 from __future__ import annotations
@@ -293,6 +318,29 @@ def k1_bytes(args) -> int:
     return sum(t.numel() * t.element_size() for t in args if t is not None) + B * R * (c1 + 1) * 4
 
 
+def k1_counts():
+    from ide3d_tpu_torch.ops import ray_march
+
+    return (ray_march.sort_integrate.launches, ray_march.sort_integrate_backward.launches,
+            ray_march.sort_integrate_double_backward.launches)
+
+
+def zero_k1_counts() -> None:
+    from ide3d_tpu_torch.ops import ray_march
+
+    ray_march.sort_integrate.launches = ray_march.sort_integrate_backward.launches = 0
+    ray_march.sort_integrate_double_backward.launches = 0
+
+
+def k1_launches(where: str) -> tuple:
+    """K1's (forward, backward) launches since zero_k1_counts(); raises if its
+    double backward ran, which no path but path-length regularization runs."""
+    f, b, d = k1_counts()
+    if d:
+        raise RuntimeError(f"{where}: K1's double backward launched {d} times, want 0")
+    return f, b
+
+
 def max_err(a, b) -> float:
     return max(float((x.float() - y.float()).abs().max()) for x, y in zip(a, b))
 
@@ -319,7 +367,18 @@ def phase_build() -> None:
 
     t0 = time.perf_counter()
     lib, log = _build.build("ray_march")
-    used = [ln.split(":", 1)[1].strip() for ln in log.splitlines() if "Used" in ln]
+    used, kernel = [], ""
+    for ln in log.splitlines():  # ptxas -v: each entry function, then its registers
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1] if "'" in ln else ln
+            kind = ("double_backward" if "double_backward_kernel" in name else
+                    "backward" if "backward_kernel" in name else "forward")
+            kernel = (f"{kind}<{'bf16' if '__nv_bfloat16' in name else 'fp32'},"
+                      f"{'relu' if 'Lb1E' in name else 'softplus'}>")
+        elif "spill" in ln and kernel:
+            kernel += f" [{ln.strip()}]"
+        elif "Used" in ln:
+            used.append(f"{kernel}: {ln.split(':', 1)[1].strip()}")
     print(f"build: torch {torch.__version__} cuda {torch.version.cuda}; "
           f"{lib.name} in {time.perf_counter() - t0:.1f} s"
           f"{' (cached)' if not log else ''}; ptxas: {' | '.join(used) or 'n/a'}", flush=True)
@@ -486,7 +545,7 @@ def phase_frame() -> dict:
 
     # The main path, counted: the gen_images batch for each seed.
     torch.cuda.reset_peak_memory_stats()
-    ray_march.sort_integrate.launches = 0
+    zero_k1_counts()
     times, outs = [], []
     for s in SEEDS:
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -496,7 +555,7 @@ def phase_frame() -> dict:
         end.synchronize()
         times.append(start.elapsed_time(end))
         outs.append((img, seg, seg_rgb))
-    launches = ray_march.sort_integrate.launches
+    launches = k1_launches("gen_images")[0]
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     R = cfg.img_resolution
@@ -592,7 +651,6 @@ def painter_round(app, counts: dict, check: bool) -> list:
     import base64
 
     from ide3d_tpu_torch.apps import painter
-    from ide3d_tpu_torch.ops import ray_march
 
     R = app.session.G.cfg.img_resolution
     finite, masks, rows, ext = [], None, [], None
@@ -604,13 +662,13 @@ def painter_round(app, counts: dict, check: bool) -> list:
             if payload is not None and "mask" in payload:
                 payload = dict(payload, mask=base64.b64encode(masks[payload["mask"]].reshape(-1)).decode())
             body = json.dumps(payload).encode() if payload is not None else b""
-            ray_march.sort_integrate.launches = counts["planes"] = 0
-            ray_march.sort_integrate_backward.launches = 0
+            zero_k1_counts()
+            counts["planes"] = 0
             t0 = time.perf_counter()
             status, ctype, reply = app.handle(method, path, query or {}, body)
             ms = (time.perf_counter() - t0) * 1e3
-            got = (ray_march.sort_integrate.launches, counts["planes"])
-            bwd = ray_march.sort_integrate_backward.launches
+            fwd, bwd = k1_launches(f"painter {route}")
+            got = (fwd, counts["planes"])
             if status != 200:
                 raise RuntimeError(f"painter {route}: status {status}: {reply[:300]!r}")
             if got != (k1, planes):
@@ -958,7 +1016,6 @@ def train_full_width(smi: str) -> dict:
     """TRAIN_STEPS of make_gan_train_step at the flagship width, batch 4."""
     from ide3d_tpu_torch.models.discriminator import Discriminator, DiscriminatorConfig
     from ide3d_tpu_torch.models.generator import GeneratorConfig, Ide3dGenerator
-    from ide3d_tpu_torch.ops import ray_march
     from ide3d_tpu_torch.train import gan
 
     B, cfg = 4, GeneratorConfig()
@@ -976,13 +1033,13 @@ def train_full_width(smi: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     times, launches, stats = [], [], []
     for _ in range(TRAIN_STEPS):
-        ray_march.sort_integrate.launches = ray_march.sort_integrate_backward.launches = 0
+        zero_k1_counts()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         state, s = step(state, batch, gen, TRAIN_ADA_P)
         end.record()
         end.synchronize()
-        launches.append((ray_march.sort_integrate.launches, ray_march.sort_integrate_backward.launches))
+        launches.append(k1_launches("train step"))
         times.append(start.elapsed_time(end))
         stats.append({k: float(v) for k, v in s.items()})
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -1192,9 +1249,9 @@ def offline_video(snap: str, mode: str, out: str, smi: str, label: str) -> dict:
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        ray_march.sort_integrate.launches = 0
+        zero_k1_counts()
         res = gen_videos.main(argv)
-        launches = ray_march.sort_integrate.launches
+        launches = k1_launches("gen_videos")[0]
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
     finally:
         common.write_video = real
@@ -1310,10 +1367,10 @@ def offline_mesh(snap: str, outdir: str, smi: str) -> dict:
     video = os.path.join(outdir, "orbit.mp4")
     renderer.sort_integrate = capture
     try:
-        ray_march.sort_integrate.launches = 0
+        zero_k1_counts()
         res = render_mesh.main(["--network", snap, "--voxel-resolution", "128", "--video", video,
                                 "--frames", str(MESH_FRAMES), "--outdir", outdir, "--device", "cuda"])
-        launches = ray_march.sort_integrate.launches
+        launches = k1_launches("render_mesh")[0]
     finally:
         renderer.sort_integrate = ray_march.sort_integrate
     if launches != MESH_FRAMES:
@@ -1416,10 +1473,10 @@ def metrics_counted(snap: str, imgs: str, root: str, smi: str) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         gen_s.clear()
-        ray_march.sort_integrate.launches = 0
+        zero_k1_counts()
         rec = real_calc(name, **kw)
         torch.cuda.synchronize()
-        per[name] = {"rec": rec, "launches": ray_march.sort_integrate.launches,
+        per[name] = {"rec": rec, "launches": k1_launches(f"calc_metric {name}")[0],
                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
                      "gen_s": sum(gen_s)}
         return rec
@@ -1644,20 +1701,15 @@ class StepMeter:
     restart at each mark."""
 
     def __init__(self):
-        from ide3d_tpu_torch.ops import ray_march
-
         self.records, self.label = [], None
         self.mse, self.peak = [], {}
-        ray_march.sort_integrate.launches = ray_march.sort_integrate_backward.launches = 0
+        zero_k1_counts()
 
     def mark(self, label) -> None:
-        from ide3d_tpu_torch.ops import ray_march
-
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
-        self.records.append((label, ray_march.sort_integrate.launches,
-                             ray_march.sort_integrate_backward.launches, ev))
-        ray_march.sort_integrate.launches = ray_march.sort_integrate_backward.launches = 0
+        self.records.append((label, *k1_launches(f"{label} record"), ev))
+        zero_k1_counts()
 
     def launches(self, label) -> list:
         return [(f, b) for lab, f, b, _ in self.records if lab == label]
@@ -2338,9 +2390,7 @@ def adam_steps(meter: StepMeter, label: str):
         meter.mark(label)
         return out
 
-    from ide3d_tpu_torch.ops import ray_march
-
-    ray_march.sort_integrate.launches = ray_march.sort_integrate_backward.launches = 0
+    zero_k1_counts()
     meter.mark("between")
     torch.cuda.reset_peak_memory_stats()
     torch.optim.Adam.step, meter.label = step, label
@@ -2438,7 +2488,6 @@ def editing_train(snap: str, files: dict, root: str) -> dict:
 
     from ide3d_tpu_torch.apps import common, styleclip_edit, train_nada, train_styleclip_mapper
     from ide3d_tpu_torch.models.clip import SimpleTokenizer, load_clip
-    from ide3d_tpu_torch.ops import ray_march
     from ide3d_tpu_torch.render.camera import CANONICAL_POSE_25, look_at_pose, make_label_25
     from ide3d_tpu_torch.train import nada, styleclip
 
@@ -2462,12 +2511,12 @@ def editing_train(snap: str, files: dict, root: str) -> dict:
         ws = G.mapping(torch.as_tensor(np.random.RandomState(5).randn(1, G.z_dim),
                                        dtype=torch.float32, device="cuda"), c0, truncation_psi=0.7)
     np.savez(os.path.join(root, "w.npz"), ws=ws.cpu().numpy())
-    ray_march.sort_integrate.launches = 0
+    zero_k1_counts()
     edit = styleclip_edit.main(["--network", snap, "--latents", os.path.join(root, "w.npz"),
                                 "--mapper", os.path.join(root, "mapper_id", "mapper"),
                                 f"--yaws={EDIT_YAWS}", "--outdir", os.path.join(root, "edit"),
                                 "--device", "cuda"])
-    edit_launches = ray_march.sort_integrate.launches
+    edit_launches = k1_launches("styleclip_edit")[0]
     n_yaw = len(EDIT_YAWS.split(","))
     with torch.no_grad():
         want_edit = ws + 0.1 * mapper(ws)
@@ -2571,7 +2620,7 @@ def viz_and_animation(G, snap: str, root: str) -> dict:
             for kind, sts in runs.items():
                 torch.cuda.reset_peak_memory_stats()
                 for st in sts:
-                    ray_march.sort_integrate.launches = 0
+                    zero_k1_counts()
                     e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
                     e0.record()
                     img, info = r.render(st)
@@ -2584,12 +2633,12 @@ def viz_and_animation(G, snap: str, root: str) -> dict:
                         times[kind].append(ms)
                     else:
                         times["types"][st.render_type] = ms
-                    launches.append(ray_march.sort_integrate.launches)
+                    launches.append(k1_launches(f"viz {st.render_type}")[0])
                     shapes[st.render_type] = img.shape
                 peak[kind] = torch.cuda.max_memory_allocated() / 2**30
-            ray_march.sort_integrate.launches = 0
+            zero_k1_counts()
             caps = r.capture_layers(viz_renderer.VizState(seed=1))
-            cap_launches = ray_march.sort_integrate.launches
+            cap_launches = k1_launches("viz capture_layers")[0]
             server = viz_renderer.VizServer(r)
             status, _, page, _ = server.handle("/", {})
             status2, ctype, png, _ = server.handle("/render", {"seed": "2", "yaw": "0.1", "type": "seg"})
@@ -2610,9 +2659,9 @@ def viz_and_animation(G, snap: str, root: str) -> dict:
     real_edit = PainterSession.edit
 
     def counted_edit(self, *a, **kw):
-        ray_march.sort_integrate.launches = 0
+        zero_k1_counts()
         out = real_edit(self, *a, **kw)
-        per_call.append(ray_march.sort_integrate.launches)
+        per_call.append(k1_launches("PainterSession.edit")[0])
         return out
 
     masks = os.path.join(root, "target_masks")
@@ -2657,7 +2706,6 @@ def editing_comparison(snap: str, imgs: str, root: str) -> dict:
     import PIL.Image
 
     from ide3d_tpu_torch.apps import edit_comparison, experiment_runner, run_pti
-    from ide3d_tpu_torch.ops import ray_march
 
     one = os.path.join(root, "one")
     os.makedirs(one)
@@ -2668,12 +2716,12 @@ def editing_comparison(snap: str, imgs: str, root: str) -> dict:
                   "--device", "cuda"])
     np.savez(os.path.join(root, "dirs.npz"),
              smile=np.random.RandomState(6).randn(512).astype(np.float32) * 0.2)
-    ray_march.sort_integrate.launches = 0
+    zero_k1_counts()
     edit_comparison.main(["--network", snap, "--images", one, "--pti", os.path.join(root, "cmp_pti"),
                           "--directions", os.path.join(root, "dirs.npz"), "--interfacegan-max", "1.0",
                           "--ganspace-components", "1", "--outdir", os.path.join(root, "cmp"),
                           "--device", "cuda"])
-    cmp_launches = ray_march.sort_integrate.launches
+    cmp_launches = k1_launches("edit_comparison")[0]
     strips = os.listdir(os.path.join(root, "cmp", name[:-4], "concat_images"))
     rec = np.asarray(PIL.Image.open(os.path.join(root, "cmp", name[:-4], "concat_images", "rec.jpg")))
     rc = experiment_runner.main(["--network", snap, "--images", one, "--outdir",
@@ -3463,13 +3511,11 @@ SIGMA_MEDIAN = 13.0  # about the random flagship frame's median density
 
 
 def counted(fn):
-    """(fn(), (K1's launches, its backward's)), both counts set to 0 just
-    before the call and read just after it."""
-    from ide3d_tpu_torch.ops import ray_march
-
-    ray_march.sort_integrate.launches = ray_march.sort_integrate_backward.launches = 0
+    """(fn(), (K1's launches, its backward's)), every count set to 0 just
+    before the call and read just after it (the double backward's must be 0)."""
+    zero_k1_counts()
     out = fn()
-    return out, (ray_march.sort_integrate.launches, ray_march.sort_integrate_backward.launches)
+    return out, k1_launches("phase 13 path")
 
 
 def arch_frames(G, label: str, seed: int = 0) -> dict:
@@ -3634,7 +3680,6 @@ def arch_nada(G) -> dict:
     random projection of the pooled image standing in for CLIP: K1 (2, 0),
     the feature volume out of the optimizer, without gradient and
     bit-identical, the superres moved; event ms of the step."""
-    from ide3d_tpu_torch.ops import ray_march
     from ide3d_tpu_torch.render.camera import CANONICAL_POSE_25
     from ide3d_tpu_torch.train import nada
 
@@ -3716,7 +3761,6 @@ def arch_encoder(snap: str, root: str) -> dict:
     from ide3d_tpu_torch.apps import common, infer_face_animation_avatar
     from ide3d_tpu_torch.data.dataset import ImageFolderDataset
     from ide3d_tpu_torch.metrics import calc_metric, make_detector
-    from ide3d_tpu_torch.ops import ray_march
     from ide3d_tpu_torch.render.camera import CANONICAL_POSE_25
 
     G = common.load_generator(snap, "cuda")
@@ -3861,6 +3905,268 @@ def arch_launches(arch: dict, i: int) -> dict:
             "hybrid_nada_step": arch["nada"]["launches"][i]}
 
 
+PARITY_STEPS = 5  # flagship steps of phase 14 at PL_INTERVAL 4: PL on steps 0 and 4
+PARITY_TURNS = 2  # PL / plain and wavelet / bilinear step pairs timed in turns
+# K1 (forward, backward, double backward) launches per flagship train step:
+# a PL step renders twice (the G loss, the PL pass), runs the backward once
+# for the G loss, once inside the PL pass's create_graph gradient and once
+# where the second pass reaches the PL render's K1 node, and the double
+# backward once where it reaches the first pass's backward node.
+PARITY_LAUNCHES = {"pl": (2, 3, 1), "plain": (1, 1, 0)}
+
+
+def k1_double_backward_bytes(args, cot, gg) -> int:
+    """Bytes K1's double backward must move: the backward's inputs and gg read
+    once, gradients as large as the values and the cotangents written once."""
+    read = sum(t.numel() * t.element_size() for t in (*args, *cot, *gg) if t is not None)
+    return read + sum(t.numel() * t.element_size() for t in (args[1], args[3], *cot))
+
+
+def group_err(got, ref) -> float:
+    """The larger of rel_err over the value gradients and over the cotangent
+    gradients (each group against its own max|ref|)."""
+    return max(rel_err(got[:2], ref[:2]), rel_err(got[2:], ref[2:]))
+
+
+def parity_double_backward(smi: str) -> dict:
+    """K1's double backward against autograd through its plain version at
+    B=4, every option, fp32 and bf16 values, sorted and unsorted halves; then
+    timed at the training render's layout."""
+    from ide3d_tpu_torch.ops.ray_march import (sort_integrate_double_backward,
+                                               sort_integrate_double_backward_plain)
+
+    gen = torch.Generator().manual_seed(14)
+    errs = {}
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+        for sorted_halves in (False, True):
+            args = k1_inputs(gen, dtype, B=4, sorted_halves=sorted_halves)
+            cot = _k1_cotangents(gen, args)
+            gg = [torch.randn(v.shape, generator=gen).to("cuda", dtype) for v in (args[1], args[3])]
+            for opts in K1_OPTIONS:
+                kw = _k1_options(opts, args, gen)
+                got = sort_integrate_double_backward(*args, *cot, *gg, **kw)
+                ref = sort_integrate_double_backward_plain(*args, *cot, *gg, **kw)
+                torch.cuda.synchronize()
+                _check_finite(f"K1 double backward {opts}", [g.float() for g in got])
+                err = group_err(got, ref)
+                name = f"{str(dtype).split('.')[-1]} {'sorted' if sorted_halves else 'unsorted'} " \
+                       f"{','.join(opts) or 'softplus'}"
+                if err > tol or any(g.dtype != r.dtype for g, r in zip(got, ref)):
+                    raise RuntimeError(f"K1 double backward vs plain ({name}): max abs err / "
+                                       f"max|grad| {err} > {tol}")
+                errs[name] = err
+                del got, ref
+            del args, cot, gg
+
+    sets = [(a, c, [torch.randn(v.shape, generator=gen).to("cuda", v.dtype) for v in (a[1], a[3])])
+            for a, c in training_k1_sets(gen)]
+    dbl = [lambda s=s: sort_integrate_double_backward(*s[0], *s[1], *s[2]) for s in sets]
+    t_dbl = [graph_ms(dbl, 10), graph_ms(dbl, 10)]
+    plain = [event_median_ms(lambda s=s: sort_integrate_double_backward_plain(*s[0], *s[1], *s[2]),
+                             runs=5) for s in sets]
+    nbytes = k1_double_backward_bytes(*sets[0])
+    out = {"max_abs_err": max(errs.values()), "errs": errs, "ms": min(t_dbl), "plain_ms": min(plain),
+           "bound_ms": nbytes / HBM_BYTES_PER_MS, "bytes": nbytes}
+    out["bound_share"] = out["bound_ms"] / out["ms"]
+    print(f"parity: K1 double backward bf16 B=4 R=4096 S=96+96 C=51 (coarse sorted, fine "
+          f"unsorted): {t_dbl[0]:.4f}/{t_dbl[1]:.4f} ms, {nbytes} B, bound "
+          f"{out['bound_ms'] * 1e3:.1f} us ({100 * out['bound_share']:.1f}% of it); plain double "
+          f"backward (autograd, event ms) {[round(p, 4) for p in plain]} ({smi}); vs plain, max abs "
+          f"err / max|grad| {json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})} (limits "
+          f"fp32 1e-4, bf16 1e-2)", flush=True)
+    return out
+
+
+def parity_pl_card_vs_cpu() -> dict:
+    """The tiny fp32 preset's PL penalty, mean length and G gradients at given
+    ws, y and pl_mean (const noise, the deterministic render), card (K1, its
+    backward and double backward) against CPU (plain)."""
+    from ide3d_tpu_torch.render.camera import CANONICAL_POSE_25
+    from ide3d_tpu_torch.train import gan
+
+    rng = np.random.RandomState(14)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        G, _ = _tiny_gan(dev)
+        ws = torch.from_numpy(rng.randn(2, G.num_ws, 512).astype(np.float32) * 0.5)
+        y = torch.from_numpy(rng.randn(2, 32, 32, 3).astype(np.float32) / 32)
+        rng = np.random.RandomState(14)  # the same draws on both devices
+        c = torch.as_tensor(CANONICAL_POSE_25)[None].repeat(2, 1).to(dev)
+        zero_k1_counts()
+        pen, lengths = gan.pl_penalty(G, ws.to(dev).requires_grad_(), c, torch.tensor(0.5, device=dev),
+                                      None, y=y.to(dev))
+        grads = [g for g in torch.autograd.grad(pen, list(G.parameters()), allow_unused=True)
+                 if g is not None]
+        res[dev] = {"values": [pen.detach(), lengths.detach().mean()], "g": grads,
+                    "launches": k1_counts()}
+    err = {"values": rel_err([v.cpu() for v in res["cuda"]["values"]], res["cpu"]["values"]),
+           "g": rel_err([g.cpu() for g in res["cuda"]["g"]], res["cpu"]["g"])}
+    print(f"parity: tiny fp32 G, PL penalty and mean length "
+          f"{[round(float(v), 6) for v in res['cuda']['values']]}, card (K1 launches (forward, "
+          f"backward, double backward) {res['cuda']['launches']}) vs CPU (plain): max abs err / "
+          f"max|x| {json.dumps({k: float(f'{v:.3g}') for k, v in err.items()})} (limit 1e-4)",
+          flush=True)
+    if max(err.values()) > 1e-4:
+        raise RuntimeError(f"parity: PL card vs CPU {err}")
+    if res["cuda"]["launches"] != (1, 2, 1):
+        raise RuntimeError(f"parity: tiny PL K1 launches {res['cuda']['launches']}, want (1, 2, 1)")
+    return err
+
+
+def _timed_step(step, state, batch, gen, ada_p, at: int):
+    """One step of `step` at state.step = `at`: (stats, event ms, K1 counts,
+    peak GiB), every count set to 0 just before it."""
+    state.step = at
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_k1_counts()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    state, s = step(state, batch, gen, ada_p)
+    end.record()
+    end.synchronize()
+    stats = {k: float(v) for k, v in s.items()}
+    if not all(np.isfinite(v) for v in stats.values()):
+        raise RuntimeError(f"parity step at {at}: non-finite stats {stats}")
+    return stats, start.elapsed_time(end), k1_counts(), torch.cuda.max_memory_allocated() / 2**30
+
+
+def parity_full_width(smi: str) -> dict:
+    """The flagship at batch 4, bf16: PARITY_STEPS steps with pl_weight 2 (PL
+    on steps 0 and 4, R1 on step 0), each step's K1 launches exact; PL and
+    plain steps in turns; then wavelet_aa against the bilinear warp, an R1
+    step and a plain step of each, in turns."""
+    from ide3d_tpu_torch.models.discriminator import Discriminator, DiscriminatorConfig
+    from ide3d_tpu_torch.models.generator import GeneratorConfig, Ide3dGenerator
+    from ide3d_tpu_torch.train import augment, gan
+
+    B, cfg = 4, GeneratorConfig()
+    tcfg = gan.GanTrainConfig(r1_gamma=0.0002 * cfg.img_resolution**2 / B, pl_weight=2.0)
+    G = Ide3dGenerator(cfg).init(seed=0).cuda()
+    D = Discriminator(DiscriminatorConfig(img_channels=gan.d_input_channels(tcfg, cfg))).init(1).cuda()
+    state = gan.init_gan_state(G, D, tcfg)
+    step = gan.make_gan_train_step(tcfg)
+    batch = synthetic_batch(B, cfg.img_resolution, seed=14)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+
+    runs = [_timed_step(step, state, batch, gen, TRAIN_ADA_P, i) for i in range(PARITY_STEPS)]
+    pl_means, read = [], {"pl": set(), "plain": set()}  # the K1 counts read per kind of step
+    for i, (s, _, n, _) in enumerate(runs):
+        kind = "pl" if i % gan.PL_INTERVAL == 0 else "plain"
+        read[kind].add(n)
+        if n != PARITY_LAUNCHES[kind]:
+            raise RuntimeError(f"parity step {i} ({kind}): K1 launches {n}, want {PARITY_LAUNCHES[kind]}")
+        if (s["pl_penalty"] > 0) != (kind == "pl"):
+            raise RuntimeError(f"parity step {i}: pl_penalty {s['pl_penalty']} off its interval")
+    if not float(state.pl_mean) > 0:
+        raise RuntimeError(f"parity: pl_mean {float(state.pl_mean)} did not move")
+    pl_means.append(float(state.pl_mean))
+    # PL (step 4, 8) and plain (5, 9) steps in turns; no R1 at these steps.
+    turns = {"pl": [], "plain": []}
+    for k in range(PARITY_TURNS):
+        for kind, at in (("pl", gan.PL_INTERVAL * (k + 1)), ("plain", gan.PL_INTERVAL * (k + 1) + 1)):
+            s, ms, n, peak = _timed_step(step, state, batch, gen, TRAIN_ADA_P, at)
+            read[kind].add(n)
+            if n != PARITY_LAUNCHES[kind]:
+                raise RuntimeError(f"parity {kind} step: K1 launches {n}")
+            turns[kind].append((ms, peak))
+    pl_means.append(float(state.pl_mean))
+
+    # wavelet_aa against the bilinear warp at ada_p 0.2: an R1 step (at 0) and
+    # a plain step (at 1) of each, in turns, on the same state.
+    steps = {"wavelet": gan.make_gan_train_step(dataclasses.replace(
+        tcfg, pl_weight=0.0, aug=augment.AugmentConfig(wavelet_aa=True))),
+        "bilinear": gan.make_gan_train_step(dataclasses.replace(tcfg, pl_weight=0.0))}
+    warp = {f"{w}_{k}": [] for w in steps for k in ("r1", "plain")}
+    for _ in range(PARITY_TURNS):
+        for w, fn in steps.items():
+            for k, at in (("r1", 0), ("plain", 1)):
+                s, ms, n, peak = _timed_step(fn, state, batch, gen, TRAIN_ADA_P, at)
+                if (s["r1_penalty"] > 0) != (k == "r1") or n != (1, 1, 0):
+                    raise RuntimeError(f"parity {w} {k} step: R1 {s['r1_penalty']}, K1 {n}")
+                warp[f"{w}_{k}"].append((ms, peak))
+    print(f"parity: GeneratorConfig() bf16 + Discriminator(img_channels=25) bf16, batch 4, ada_p "
+          f"{TRAIN_ADA_P}, pl_weight 2, pl_interval {gan.PL_INTERVAL} ({smi}): steps "
+          f"0-{PARITY_STEPS - 1} ms "
+          f"{[round(r[1], 3) for r in runs]} (step 0 with R1 and the first calls), K1 (forward, "
+          f"backward, double backward) per step {[r[2] for r in runs]}, peaks GiB "
+          f"{[round(r[3], 3) for r in runs]}, pl_penalty {[round(r[0]['pl_penalty'], 5) for r in runs]}, "
+          f"pl_mean {pl_means}; in turns, PL step ms / peak {turns['pl']}, plain {turns['plain']}; "
+          f"wavelet_aa vs bilinear, R1 and plain steps in turns (ms, peak GiB): "
+          f"{json.dumps({k: [(round(a, 3), round(b, 3)) for a, b in v] for k, v in warp.items()})}",
+          flush=True)
+    (pl_read,), (plain_read,) = read["pl"], read["plain"]  # one reading each, checked above
+    return {"launches": [r[2] for r in runs], "step_ms": [r[1] for r in runs],
+            "pl_step_launches": pl_read, "plain_step_launches": plain_read,
+            "pl_ms": [t for t, _ in turns["pl"]], "plain_ms": [t for t, _ in turns["plain"]],
+            "pl_peak_gib": max(p for _, p in turns["pl"]),
+            "plain_peak_gib": max(p for _, p in turns["plain"]),
+            "warp": {k: [t for t, _ in v] for k, v in warp.items()},
+            "warp_peak_gib": {k: max(p for _, p in v) for k, v in warp.items()},
+            "pl_means": pl_means}
+
+
+def parity_entry_point() -> dict:
+    """tools/torch_make_synthetic_dataset.py writes 8 sphere-head views at
+    512²; apps.train_gan.main --pl-weight 2 --wavelet-aa for 2 steps on them,
+    then --resume of its snapshot-final, which restores every state dict."""
+    import os
+    import tempfile
+
+    from ide3d_tpu_torch.apps import train_gan
+    from ide3d_tpu_torch.io.checkpoint import load_checkpoint
+
+    with tempfile.TemporaryDirectory() as root:
+        data = os.path.join(root, "sphere")
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "tools/torch_make_synthetic_dataset.py", "--out", data,
+                        "--identities", "4", "--views", "2", "--resolution", "512"],
+                       check=True, capture_output=True, text=True, timeout=300)
+        data_s = time.perf_counter() - t0
+        common = ["--data", os.path.join(data, "img"), "--seg", os.path.join(data, "seg"),
+                  "--preset", "full", "--batch", "4", "--kimg", "0.008", "--pl-weight", "2",
+                  "--wavelet-aa", "--fixed-ada-p", str(TRAIN_ADA_P), "--device", "cuda"]
+        t0 = time.perf_counter()
+        zero_k1_counts()
+        first = train_gan.main(common + ["--outdir", os.path.join(root, "run")])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = k1_counts()
+        snap = os.path.join(root, "run", "snapshot-final")
+        saved, meta = load_checkpoint(snap)
+        if first.step != 2 or meta["step"] != 2 or not float(first.pl_mean) > 0:
+            raise RuntimeError(f"train_gan --pl-weight 2: step {first.step}, pl_mean "
+                               f"{float(first.pl_mean)}")
+        resumed = train_gan.main(common + ["--outdir", os.path.join(root, "resumed"),
+                                           "--resume", snap])
+        for name in ("G", "D", "G_ema", "opt_g", "opt_d"):
+            _same_state(saved[name], getattr(resumed, name).state_dict(), name)
+        _same_state(saved["pl_mean"], resumed.pl_mean, "pl_mean")
+        if resumed.step != 2:
+            raise RuntimeError(f"train_gan --resume: step {resumed.step}, want 2")
+    # 2 steps: a PL step and a plain one, plus the grid's G_ema render (K1 once)
+    want = tuple(a + b for a, b in zip(PARITY_LAUNCHES["pl"], PARITY_LAUNCHES["plain"]))
+    want = (want[0] + 1, want[1], want[2])
+    if launches != want:
+        raise RuntimeError(f"train_gan --pl-weight 2: K1 launches {launches}, want {want}")
+    print(f"parity: tools/torch_make_synthetic_dataset.py 8 views at 512² in {data_s:.1f} s; "
+          f"apps.train_gan.main --preset full --batch 4 --kimg 0.008 --pl-weight 2 --wavelet-aa on "
+          f"them: 2 steps in {run_s:.1f} s (G and D init, grid, snapshot included), K1 (forward, "
+          f"backward, double backward) {launches}, pl_mean {float(first.pl_mean):.6g}; --resume of "
+          f"snapshot-final restored G, D, G_ema, opt_g, opt_d, pl_mean, step 2", flush=True)
+    return {"run_s": run_s, "launches": launches}
+
+
+def phase_parity(smi: str) -> dict:
+    t0 = time.perf_counter()
+    k = parity_double_backward(smi)
+    e = parity_pl_card_vs_cpu()
+    f = parity_full_width(smi)
+    a = parity_entry_point()
+    print(f"parity: phase 14 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"k1_double_backward": k, "card_vs_cpu": e, "full": f, "app": a}
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
@@ -3876,8 +4182,10 @@ def main() -> None:
     ed = phase_editing(smi.splitlines()[0])
     pre = phase_preprocess(smi.splitlines()[0])
     arch = phase_arch(smi.splitlines()[0])
+    par = phase_parity(smi.splitlines()[0])
     main_path, b1 = k["timing"][3], k["timing"][1]  # the frame runs K1 at B=3
     kb = tr["k1_backward"]
+    kd = par["k1_double_backward"]
     print(json.dumps({"kernels": [{
         "name": "sort_integrate",
         "route": "cuda",
@@ -3954,6 +4262,32 @@ def main() -> None:
         "preprocess_launches": preprocess_launches(pre, 1),
         "preprocess_step_ms": pre["step_median_ms"],
         "arch_launches": arch_launches(arch, 1),
+        "parity_launches": {"pl_step": par["full"]["pl_step_launches"][1],
+                            "plain_step": par["full"]["plain_step_launches"][1]},
+    }, {
+        "name": "sort_integrate_double_backward",
+        "route": "cuda",
+        "source": "ide3d_tpu_torch/csrc/ray_march.cu",
+        "replaces": "ide3d_tpu/ops/pallas/ray_march.py:121",
+        "autodiff_of": "ide3d_tpu/render/integration.py:85",
+        "launches": sum(n[2] for n in par["full"]["launches"]),
+        "max_abs_err": kd["max_abs_err"],
+        "max_abs_err_is": "relative to max|grad|",
+        "ms": kd["ms"],
+        "plain_ms": kd["plain_ms"],
+        "bound_ms": kd["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "bytes": kd["bytes"],
+        "bound_share": kd["bound_share"],
+        "parity_launches": {"pl_step": par["full"]["pl_step_launches"][2],
+                            "plain_step": par["full"]["plain_step_launches"][2],
+                            "train_gan_2_steps": par["app"]["launches"][2]},
+        "train_step": {"pl_ms": par["full"]["pl_ms"], "plain_ms": par["full"]["plain_ms"],
+                       "pl_peak_gib": par["full"]["pl_peak_gib"],
+                       "plain_peak_gib": par["full"]["plain_peak_gib"],
+                       "wavelet_ms": par["full"]["warp"],
+                       "wavelet_peak_gib": par["full"]["warp_peak_gib"]},
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,9 @@ The JAX package `ide3d_tpu` stays the reference; this package mirrors its
 module layout and names so that each module's counterpart is easy to find:
 
   ops/     bias_act, upfirdn2d, conv2d_resample, modulated_conv2d, tri-plane
-           sampling, and ray_march (the hand-written CUDA kernel K1 + its plain
-           PyTorch version)
+           and volume sampling (twice differentiable), and ray_march (the
+           hand-written CUDA kernel K1, its backward and double backward, each
+           beside its plain PyTorch version)
   render/  camera, integration (compositing + sample_pdf), TriplaneRenderer
   models/  layers, mapping, blocks, generator (Ide3dGenerator), encoder
            (HybridEncoder, MultiViewHybridEncoder), discriminator, arcface
@@ -13,7 +14,8 @@ module layout and names so that each module's counterpart is easy to find:
            mtcnn (P-/R-/O-Net and the cascade), face_recon (Deep3DFaceRecon's
            ResNet-50), stylegan2 (the TF1-era StyleGAN2 generator)
   editing/ latent_editor (GANSpace, InterFaceGAN, the StyleCLIP LevelsMapper)
-  train/   gan (the GAN train step, lazy R1), augment (ADA), pti (the w+
+  train/   gan (the GAN train step, lazy R1 and path-length
+           regularization), augment (ADA, its wavelet warp), pti (the w+
            projector and pivotal tuning), encoder (the hybrid-encoder step),
            losses, styleclip (the mapper step, latent optimization), nada
   parallel/ stats (StatsAccumulator)

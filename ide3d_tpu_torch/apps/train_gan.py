@@ -12,7 +12,8 @@ steps' sign statistics read back every 4 steps, G_ema sample grids, snapshots
 D, G_ema, both optimizers, pl_mean, the step and ada_p. `--metrics fid,kid`
 evaluates G_ema at every snapshot and at the end (once per kimg point) on the
 un-mirrored dataset, appending {"kimg", ...record} to metric-<name>.jsonl.
-Not ported yet: `--wavelet-aa` and `--pl-weight > 0` raise NotImplementedError.
+`--pl-weight` turns on path-length regularization (every 4 steps) and
+`--wavelet-aa` the sym6 anti-aliased ADA warp.
 """
 
 from __future__ import annotations
@@ -42,11 +43,11 @@ def main(argv=None):
     ap.add_argument("--fixed-ada-p", type=float, default=None,
                     help="hold ADA at this constant p instead of running the controller")
     ap.add_argument("--wavelet-aa", action="store_true",
-                    help="sym6 wavelet anti-aliasing around the ADA warp (not ported: raises)")
+                    help="sym6 wavelet anti-aliasing around the ADA warp (~4x its cost)")
     ap.add_argument("--r1-gamma", type=float, default=None,
                     help="R1 weight; default the StyleGAN2-ADA heuristic 0.0002*resolution^2/batch")
     ap.add_argument("--pl-weight", type=float, default=0.0,
-                    help="path-length regularization weight (only 0: not ported)")
+                    help="path-length regularization weight (0 = off; StyleGAN2 uses 2)")
     ap.add_argument("--resume", default=None, help="a snapshot directory")
     ap.add_argument("--metrics", default="",
                     help="comma list (e.g. fid,kid) evaluated on G_ema at every snapshot and at "
@@ -60,10 +61,6 @@ def main(argv=None):
                     help="tiny = smoke-test scale (CPU); small = 64px validation scale")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.wavelet_aa:
-        raise NotImplementedError("--wavelet-aa is not ported yet")
-    if args.pl_weight > 0:
-        raise NotImplementedError("--pl-weight > 0 is not ported yet")
 
     import numpy as np
     import torch
@@ -74,7 +71,7 @@ def main(argv=None):
     from ..models.generator import Ide3dGenerator
     from ..parallel.stats import StatsAccumulator
     from ..render.camera import CANONICAL_POSE_25
-    from ..train.augment import AdaState, ada_accumulate, ada_init, ada_update
+    from ..train.augment import AdaState, AugmentConfig, ada_accumulate, ada_init, ada_update
     from ..train.gan import GanTrainConfig, d_input_channels, init_gan_state, make_gan_train_step
     from ..utils.seg import mask2color
     from .common import PRESETS, save_image_grid
@@ -85,7 +82,8 @@ def main(argv=None):
     if args.r1_gamma is None:
         args.r1_gamma = 0.0002 * gcfg.img_resolution ** 2 / args.batch
         print(f"r1-gamma (auto): {args.r1_gamma:.3g}")
-    tcfg = GanTrainConfig(r1_gamma=args.r1_gamma, use_ada=not args.no_ada)
+    tcfg = GanTrainConfig(r1_gamma=args.r1_gamma, use_ada=not args.no_ada,
+                          pl_weight=args.pl_weight, aug=AugmentConfig(wavelet_aa=args.wavelet_aa))
     G = Ide3dGenerator(gcfg).init(args.seed).to(device)
     D = Discriminator(DiscriminatorConfig(img_resolution=gcfg.img_resolution,
                                           img_channels=d_input_channels(tcfg, gcfg)))

@@ -1057,6 +1057,270 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   if (pl.staged && t == 0) bulk_wait();  // the last slabs are written before the block ends
 }
 
+// ---------------------------------------------------------------- the double backward
+//
+// The gradient of K1's backward (above) with respect to its differentiable
+// inputs: both value slabs and the three cotangents. It stands for the JAX
+// package's second-order autodiff of the fine composite
+// `integrate_rays_merged` (ide3d_tpu/render/integration.py:85), which the
+// path-length regularizer (`pl_penalty_fn`, ide3d_tpu/train/gan.py:306)
+// differentiates twice. Notation per ray, k in depth order, i = src[k] the
+// input row of position k, f_k its C features and s_k its sigma + noise:
+//   d_k = act(s_k), d'_k, d''_k (softplus: sigmoid(s), sigmoid(s)(1 -
+//   sigmoid(s)); relu: [s > 0], 0); delta_k = (z_{k+1} - z_k)|ray_d|, the last
+//   1e10|ray_d|; x_k = delta_k d_k; e_k = exp(-x_k); T_k = exp(-sum_{j<k} x_j);
+//   T'_k = T_k e_k = T_{k+1}; w_k = (1 - e_k) T_k; W = sum w;
+//   a_k = g_feat . f_k + g_depth z_k + g_wsum;
+//   L_k = a_k - [last_back] a_{S-1} - [white_back] sum(g_feat);
+//   D_k = L_k T'_k - sum_{j>k} L_j w_j            (the backward's dL/dx_k);
+//   w'_k = w_k + [last_back][k = S-1](1 - W).
+// The backward writes the row [w'_k g_feat, D_k delta_k d'_k] for sample i.
+// Given the cotangents of those rows, gg_f (C columns) and gg_r (the sigma
+// column), M = sum_k w'_k u_k + sum_k v_k D_k with
+//   u_k = g_feat . gg_f_k,  v_k = gg_r_k delta_k d'_k.
+// Writing P_k = sum_{j<k} v_j and c_k = v_k T'_k - w_k P_k, the second sum is
+// sum_k c_k L_k (swap the order of the double sum), so with C_s = sum c and
+// c'_k = c_k - [last_back][k = S-1] C_s (the a_{S-1} inside every L_k):
+//   dM/dg_feat  = sum_k w'_k gg_f_k + sum_k c'_k f_k - [white_back] C_s
+//   dM/dg_depth = sum_k c'_k z_k,   dM/dg_wsum = sum_k c'_k
+//   dM/df_k     = c'_k g_feat
+// and through x (v held fixed) and through d'_k inside v_k:
+//   U_k = u_k - [last_back] u_{S-1}   (w' enters M as sum_k w_k U_k + const)
+//   dM/dx_k = U_k T'_k - sum_{j>k} U_j w_j - L_k T'_k (P_k + v_k)
+//             - sum_{j>k} c_j L_j
+//   dM/ds_k = dM/dx_k delta_k d'_k + D_k gg_r_k delta_k d''_k.
+// (dT'_j/dx_m = -T'_j [m <= j] and dw_j/dx_m = [m = j] T'_j - [m < j] w_j give
+// the two scans of the x term.) Each of these is a block scan or sum over the
+// ray's sorted positions; the last position's suffixes are empty, and its
+// e^{-x} underflows to 0 before it meets the 1e10 delta: no inf * 0.
+//
+// Bound on the H100: bytes. A ray reads its values, the gradient's cotangent
+// gg (as large), its depths, noise and cotangents, and writes a gradient as
+// large as its values and C + 2 floats: at B=4, R=4096, S=96+96, C+1=52, bf16
+// that is 1,001,062,400 B in all (the backward's 670 MB plus gg and the
+// cotangents' gradients), 298.8 us at 3.35 TB/s. The design is the simple one:
+// a block of kMaxSamples threads per ray (a grid-stride loop over rays), a
+// thread a sorted position for the scans, a warp a row for the dots (g_feat .
+// f_i and g_feat . gg_f_i, coalesced), a thread a channel for dM/dg_feat (a
+// second read of both slabs, from L2), flat coalesced writes of the rows, the
+// stable rank by counting over all S depths. It runs once per path-length
+// step; making it fast (staging, the forward's persistent plan) is later work.
+
+constexpr int kDbThreads = kMaxSamples;  // a thread a sorted position
+constexpr int kDbWarps = kDbThreads / 32;
+
+template <typename T>
+struct DblArgs {
+  Args<T> f;             // the forward's inputs; its plan and outputs are unused
+  const float* g_feat;   // [n_rays, C]
+  const float* g_depth;  // [n_rays]
+  const float* g_wsum;   // [n_rays]
+  const T* gg_a;         // [n_rays, s_a, channels], the cotangent of the backward's gv_a
+  const T* gg_b;         // [n_rays, s_b, channels]
+  T* d_a;                // [n_rays, s_a, channels]
+  T* d_b;                // [n_rays, s_b, channels]
+  float* d_gfeat;        // [n_rays, C]
+  float* d_gdepth;       // [n_rays]
+  float* d_gwsum;        // [n_rays]
+};
+
+// Block-wide (kDbThreads) scans and sums; every thread calls them, and `red`
+// (kDbWarps floats) is free again when they return.
+__device__ __forceinline__ float db_excl_prefix(float v, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float incl = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float n = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += n;
+  }
+  if (lane == 31) red[warp] = incl;
+  __syncthreads();
+  float off = 0.f;
+  for (int w = 0; w < warp; ++w) off += red[w];
+  __syncthreads();
+  const float ex = __shfl_up_sync(kFull, incl, 1);
+  return off + (lane == 0 ? 0.f : ex);
+}
+
+__device__ __forceinline__ float db_excl_suffix(float v, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float incl = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float n = __shfl_down_sync(kFull, incl, o);
+    if (lane + o < 32) incl += n;
+  }
+  if (lane == 0) red[warp] = incl;
+  __syncthreads();
+  float off = 0.f;
+  for (int w = kDbWarps - 1; w > warp; --w) off += red[w];
+  __syncthreads();
+  const float ex = __shfl_down_sync(kFull, incl, 1);
+  return off + (lane == 31 ? 0.f : ex);
+}
+
+__device__ __forceinline__ float db_sum(float v, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = warp_allsum(v);
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float s = 0.f;
+  for (int w = 0; w < kDbWarps; ++w) s += red[w];
+  __syncthreads();
+  return s;
+}
+
+// Shared memory of the double backward, in floats: by input index the depths,
+// dots, sigma + noise, gg's sigma column, w', c', dM/ds; the sorted depths;
+// g_feat; the block sums; then the input index of each sorted position (ints).
+int dbl_smem_bytes(int S, int channels) { return 4 * (10 * S + channels + kDbWarps); }
+
+template <typename T, bool kRelu>
+__global__ void __launch_bounds__(kDbThreads)
+    sort_integrate_double_backward_kernel(const __grid_constant__ DblArgs<T> a) {
+  extern __shared__ __align__(16) float dsm[];
+  const Args<T>& f = a.f;
+  const int s_a = f.s_a, s_b = f.s_b, S = s_a + s_b;
+  const int c1 = f.channels, C = c1 - 1;
+  float* zin = dsm;         // depth by input index
+  float* dotf = zin + S;    // g_feat . f_i
+  float* dotg = dotf + S;   // g_feat . gg_f_i
+  float* sg = dotg + S;     // sigma + noise
+  float* ggr = sg + S;      // gg's sigma column
+  float* wp = ggr + S;      // w'
+  float* cp = wp + S;       // c'
+  float* dsg = cp + S;      // dM/dsigma
+  float* zs = dsg + S;      // depth by sorted position
+  float* gf = zs + S;       // g_feat (C)
+  float* red = gf + c1;     // block sums (kDbWarps)
+  int* src = reinterpret_cast<int*>(red + kDbWarps);  // input index by position
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+
+  for (int ray = blockIdx.x; ray < f.n_rays; ray += gridDim.x) {
+    const size_t rs = ray;
+    const float norm = f.ray_norm[ray], gd = a.g_depth[ray], gw = a.g_wsum[ray];
+
+    // 1. Input sample t: depth, sigma + noise, gg's sigma column; g_feat.
+    if (t < S) {
+      const bool in_a = t < s_a;
+      const size_t row = in_a ? rs * s_a + t : rs * s_b + (t - s_a);
+      zin[t] = in_a ? f.z_a[row] : f.z_b[row];
+      float s = to_f32((in_a ? f.v_a : f.v_b)[row * c1 + C]);
+      if (f.noise) s += f.noise[rs * S + t];
+      sg[t] = s;
+      ggr[t] = to_f32((in_a ? a.gg_a : a.gg_b)[row * c1 + C]);
+    }
+    for (int c = t; c < C; c += kDbThreads) gf[c] = a.g_feat[rs * C + c];
+    __syncthreads();
+
+    // 2. g_feat . f_i and g_feat . gg_f_i, a warp a row.
+    for (int i = warp; i < S; i += kDbWarps) {
+      const bool in_a = i < s_a;
+      const size_t row = in_a ? rs * s_a + i : rs * s_b + (i - s_a);
+      const T* vr = (in_a ? f.v_a : f.v_b) + row * c1;
+      const T* gr = (in_a ? a.gg_a : a.gg_b) + row * c1;
+      float af = 0.f, ag = 0.f;
+      for (int c = lane; c < C; c += 32) {
+        af = fmaf(gf[c], to_f32(vr[c]), af);
+        ag = fmaf(gf[c], to_f32(gr[c]), ag);
+      }
+      af = warp_allsum(af);
+      ag = warp_allsum(ag);
+      if (lane == 0) {
+        dotf[i] = af;
+        dotg[i] = ag;
+      }
+    }
+
+    // 3. The forward's stable rank (the first half before the second on
+    // ties), by counting; the sorted depths and the input index by position.
+    if (t < S) {
+      const float zi = zin[t];
+      int rank = 0;
+      for (int j = 0; j < S; ++j) rank += before(zin[j], j, zi, t);
+      zs[rank] = zi;
+      src[rank] = t;
+    }
+    const float gsum = db_sum(t < C ? gf[t] : 0.f, red);  // sum(g_feat); also the barrier
+
+    // 4. Position k = t: the forward, the backward's D_k, then M's terms.
+    const int k = t;
+    const bool on = k < S;
+    const int i = on ? src[k] : 0;
+    float d1 = 0.f, d2 = 0.f, delta = 0.f, x = 0.f, e = 1.f, zk = 0.f;
+    if (on) {
+      const float s = sg[i];
+      const float d = clamp_density<kRelu>(s);
+      if (kRelu) {
+        d1 = s > 0.f ? 1.f : 0.f;
+      } else {
+        d1 = 1.f / (1.f + expf(-s));
+        d2 = d1 * (1.f - d1);
+      }
+      zk = zs[k];
+      delta = (k == S - 1 ? kLastDelta : zs[k + 1] - zk) * norm;
+      x = delta * d;
+      e = expf(-x);
+    }
+    const float tr = expf(db_excl_prefix(-x, red));  // T_k
+    const float tr1 = tr * e;                         // T'_k
+    const float w = on ? (1.f - e) * tr : 0.f;
+    const float W = db_sum(w, red);
+    const int il = src[S - 1];
+    const float a_last = dotf[il] + gd * zs[S - 1] + gw;
+    const float shift = (f.last_back ? a_last : 0.f) + (f.white_back ? gsum : 0.f);
+    const float L = on ? dotf[i] + gd * zk + gw - shift : 0.f;
+    const float D = L * tr1 - db_excl_suffix(L * w, red);
+    const float U = on ? dotg[i] - (f.last_back ? dotg[il] : 0.f) : 0.f;
+    const float v = on ? ggr[i] * delta * d1 : 0.f;
+    const float P = db_excl_prefix(v, red);
+    const float c = v * tr1 - w * P;
+    const float Cs = db_sum(c, red);
+    const bool last = f.last_back && k == S - 1;
+    const float cpk = c - (last ? Cs : 0.f);
+    const float dx = U * tr1 - L * tr1 * (P + v) - db_excl_suffix(U * w + c * L, red);
+    if (on) {
+      wp[i] = w + (last ? 1.f - W : 0.f);
+      cp[i] = cpk;
+      dsg[i] = dx * delta * d1 + D * ggr[i] * delta * d2;
+    }
+    const float dgd = db_sum(on ? cpk * zk : 0.f, red);  // also the barrier for wp, cp, dsg
+    const float dgw = db_sum(cpk, red);
+    if (t == 0) {
+      a.d_gdepth[ray] = dgd;
+      a.d_gwsum[ray] = dgw;
+    }
+
+    // 5. The value rows [c'_i g_feat, dM/dsigma_i], flat and coalesced.
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int first = h ? s_a : 0;
+      const int n = (h ? s_b : s_a) * c1;
+      T* out = h ? a.d_b + rs * s_b * c1 : a.d_a + rs * s_a * c1;
+      for (int q = t; q < n; q += kDbThreads) {
+        const int r = q / c1, col = q - r * c1;
+        const int ii = first + r;
+        out[q] = from_f32<T>(col < C ? cp[ii] * gf[col] : dsg[ii]);
+      }
+    }
+
+    // 6. dM/dg_feat, a thread a channel, over the rows in input order.
+    for (int col = t; col < C; col += kDbThreads) {
+      float acc = 0.f;
+      for (int ii = 0; ii < S; ++ii) {
+        const bool in_a = ii < s_a;
+        const size_t row = in_a ? rs * s_a + ii : rs * s_b + (ii - s_a);
+        const size_t o = row * c1 + col;
+        acc = fmaf(wp[ii], to_f32((in_a ? a.gg_a : a.gg_b)[o]), acc);
+        acc = fmaf(cp[ii], to_f32((in_a ? f.v_a : f.v_b)[o]), acc);
+      }
+      a.d_gfeat[rs * C + col] = acc - (f.white_back ? Cs : 0.f);
+    }
+    __syncthreads();  // the next ray overwrites the shared arrays
+  }
+}
+
 // Blocks of a persistent launch: as many as fit on the card at once, at most
 // one a ray. `set_smem` and `blocks_per_sm` keep the kernel's attribute and
 // occupancy for the shared-memory size of its last launch.
@@ -1101,6 +1365,18 @@ int launch_backward(int device, const BwdArgs<T>& a, cudaStream_t st) {
                                   set_smem, blocks_per_sm, grid);
   if (err) return err;
   kernel<<<grid, kThreads, smem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool kRelu>
+int launch_double_backward(int device, const DblArgs<T>& a, cudaStream_t st) {
+  auto* kernel = sort_integrate_double_backward_kernel<T, kRelu>;
+  int sms = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int cap = 8 * sms;  // 2048 threads a SM
+  const int grid = a.f.n_rays < cap ? a.f.n_rays : cap;
+  kernel<<<grid, kDbThreads, dbl_smem_bytes(a.f.s_a + a.f.s_b, a.f.channels), st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1160,6 +1436,31 @@ int dispatch_backward(int device, const void* z_a, const void* v_a, int s_a, con
   return relu ? launch_backward<T, true>(device, a, st) : launch_backward<T, false>(device, a, st);
 }
 
+template <typename T>
+int dispatch_double_backward(int device, const void* z_a, const void* v_a, int s_a,
+                             const void* z_b, const void* v_b, int s_b, const void* ray_norm,
+                             const void* noise, int n_rays, int channels, int relu, int last_back,
+                             int white_back, const void* g_feat, const void* g_depth,
+                             const void* g_wsum, const void* gg_a, const void* gg_b, void* d_a,
+                             void* d_b, void* d_gfeat, void* d_gdepth, void* d_gwsum,
+                             cudaStream_t st) {
+  DblArgs<T> a;
+  a.f = make_args<T>(z_a, v_a, s_a, z_b, v_b, s_b, ray_norm, noise, n_rays, channels, last_back,
+                     white_back, nullptr, nullptr);
+  a.g_feat = static_cast<const float*>(g_feat);
+  a.g_depth = static_cast<const float*>(g_depth);
+  a.g_wsum = static_cast<const float*>(g_wsum);
+  a.gg_a = static_cast<const T*>(gg_a);
+  a.gg_b = static_cast<const T*>(gg_b);
+  a.d_a = static_cast<T*>(d_a);
+  a.d_b = static_cast<T*>(d_b);
+  a.d_gfeat = static_cast<float*>(d_gfeat);
+  a.d_gdepth = static_cast<float*>(d_gdepth);
+  a.d_gwsum = static_cast<float*>(d_gwsum);
+  return relu ? launch_double_backward<T, true>(device, a, st)
+              : launch_double_backward<T, false>(device, a, st);
+}
+
 }  // namespace
 
 extern "C" int ide3d_sort_integrate(
@@ -1196,4 +1497,27 @@ extern "C" int ide3d_sort_integrate_backward(
   return dispatch_backward<float>(device, z_a, v_a, s_a, z_b, v_b, s_b, ray_norm, noise, n_rays,
                                   channels, relu, last_back, white_back, g_feat, g_depth, g_wsum,
                                   gv_a, gv_b, st);
+}
+
+// K1's double backward: from the backward's inputs and the cotangents gg_a,
+// gg_b of its two gradients (the values' dtype and shape), writes the
+// gradients of the values d_a, d_b (their dtype) and of the cotangents
+// d_gfeat [n_rays, channels - 1], d_gdepth and d_gwsum [n_rays] (fp32). Same
+// conventions as the forward.
+extern "C" int ide3d_sort_integrate_double_backward(
+    int device, const void* z_a, const void* v_a, int s_a, const void* z_b, const void* v_b,
+    int s_b, const void* ray_norm, const void* noise, int n_rays, int channels, int vals_bf16,
+    int relu, int last_back, int white_back, const void* g_feat, const void* g_depth,
+    const void* g_wsum, const void* gg_a, const void* gg_b, void* d_a, void* d_b, void* d_gfeat,
+    void* d_gdepth, void* d_gwsum, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (vals_bf16)
+    return dispatch_double_backward<__nv_bfloat16>(
+        device, z_a, v_a, s_a, z_b, v_b, s_b, ray_norm, noise, n_rays, channels, relu, last_back,
+        white_back, g_feat, g_depth, g_wsum, gg_a, gg_b, d_a, d_b, d_gfeat, d_gdepth, d_gwsum, st);
+  return dispatch_double_backward<float>(
+      device, z_a, v_a, s_a, z_b, v_b, s_b, ray_norm, noise, n_rays, channels, relu, last_back,
+      white_back, g_feat, g_depth, g_wsum, gg_a, gg_b, d_a, d_b, d_gfeat, d_gdepth, d_gwsum, st);
 }

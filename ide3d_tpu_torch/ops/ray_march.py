@@ -9,7 +9,11 @@ entry point:
   * on CUDA tensors it launches the hand-written kernel in csrc/ray_march.cu
     (built by nvcc at first use) or raises; it never falls back. It is
     differentiable in the values: `_SortIntegrateFn`'s backward launches the
-    hand-written backward kernel (`sort_integrate_backward`),
+    hand-written backward kernel (`sort_integrate_backward`) through
+    `_SortIntegrateBackwardFn`, whose own backward launches the hand-written
+    double backward (`sort_integrate_double_backward`), so that a
+    `create_graph` pass (path-length regularization) differentiates K1 twice;
+    a third derivative raises,
   * on CPU tensors it runs `sort_integrate_plain`, the plain PyTorch version
     with the kernel's semantics, and autograd differentiates that.
 
@@ -151,15 +155,49 @@ def sort_integrate_backward_plain(
     return ga, gb
 
 
+def sort_integrate_double_backward_plain(
+    z_a: torch.Tensor,
+    vals_a: torch.Tensor,
+    z_b: torch.Tensor,
+    vals_b: torch.Tensor,
+    ray_norm: torch.Tensor,
+    g_feat: torch.Tensor,
+    g_depth: torch.Tensor,
+    g_wsum: torch.Tensor,
+    gg_a: torch.Tensor,  # cotangents of the backward's two outputs, in the values' dtype
+    gg_b: torch.Tensor,
+    noise: Optional[torch.Tensor] = None,
+    clamp_mode: str = "softplus",
+    last_back: bool = False,
+    white_back: bool = False,
+) -> Tuple[torch.Tensor, ...]:
+    """Plain K1 double backward: autograd with create_graph through
+    `sort_integrate_plain`. Returns the gradients of <(gg_a, gg_b), K1's
+    backward> with respect to (vals_a, vals_b) in their dtype and to
+    (g_feat, g_depth, g_wsum) in fp32."""
+    with torch.enable_grad():
+        va = vals_a.detach().requires_grad_()
+        vb = vals_b.detach().requires_grad_()
+        gs = [g.detach().float().requires_grad_() for g in (g_feat, g_depth, g_wsum)]
+        outs = sort_integrate_plain(z_a, va, z_b, vb, ray_norm, noise=noise,
+                                    clamp_mode=clamp_mode, last_back=last_back,
+                                    white_back=white_back)
+        ga, gb = torch.autograd.grad(outs, (va, vb), gs, create_graph=True)
+        res = torch.autograd.grad((ga, gb), (va, vb, *gs), (gg_a, gg_b), allow_unused=True)
+    return tuple(torch.zeros_like(x) if r is None else r for r, x in zip(res, (va, vb, *gs)))
+
+
 @functools.cache
 def _kernel_fns():
     lib = _build.load("ray_march")
     p, i = ctypes.c_void_p, ctypes.c_int
     fwd, bwd = lib.ide3d_sort_integrate, lib.ide3d_sort_integrate_backward
+    dbl = lib.ide3d_sort_integrate_double_backward
     fwd.argtypes = [i, p, p, i, p, p, i, p, p, i, i, i, i, i, i, p, p, p, p]
     bwd.argtypes = [i, p, p, i, p, p, i, p, p, i, i, i, i, i, i, p, p, p, p, p, p]
-    fwd.restype = bwd.restype = ctypes.c_int
-    return fwd, bwd
+    dbl.argtypes = [i, p, p, i, p, p, i, p, p, i, i, i, i, i, i, p, p, p, p, p, p, p, p, p, p, p]
+    fwd.restype = bwd.restype = dbl.restype = ctypes.c_int
+    return fwd, bwd, dbl
 
 
 def _device_index(dev: torch.device) -> int:
@@ -189,6 +227,17 @@ def _launch_forward(z_a, vals_a, z_b, vals_b, ray_norm, noise, clamp_mode, last_
     return feat, depth, wsum
 
 
+def _check_cotangents(vals_a, g_feat, g_depth, g_wsum) -> None:
+    B, R, _, c1 = vals_a.shape
+    dev = vals_a.device
+    for name, g, shape in (("g_feat", g_feat, (B, R, c1 - 1)), ("g_depth", g_depth, (B, R, 1)),
+                           ("g_wsum", g_wsum, (B, R, 1))):
+        if g.device != dev or g.dtype != torch.float32 or tuple(g.shape) != shape \
+                or not g.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 {shape} tensor on {dev}, got "
+                             f"{g.dtype} {tuple(g.shape)} on {g.device}")
+
+
 def sort_integrate_backward(
     z_a: torch.Tensor,
     vals_a: torch.Tensor,
@@ -213,16 +262,11 @@ def sort_integrate_backward(
     if z_a.device.type != "cuda":
         raise NotImplementedError(f"sort_integrate_backward has no kernel for {z_a.device}")
     _check(z_a, vals_a, z_b, vals_b, ray_norm, noise, clamp_mode)
+    _check_cotangents(vals_a, g_feat, g_depth, g_wsum)
     B, R, s_a, _ = z_a.shape
     s_b = z_b.shape[2]
     c1 = vals_a.shape[-1]
     dev = z_a.device
-    for name, g, shape in (("g_feat", g_feat, (B, R, c1 - 1)), ("g_depth", g_depth, (B, R, 1)),
-                           ("g_wsum", g_wsum, (B, R, 1))):
-        if g.device != dev or g.dtype != torch.float32 or tuple(g.shape) != shape \
-                or not g.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous float32 {shape} tensor on {dev}, got "
-                             f"{g.dtype} {tuple(g.shape)} on {g.device}")
     grad_a, grad_b = torch.empty_like(vals_a), torch.empty_like(vals_b)
     rc = _kernel_fns()[1](
         _device_index(dev),
@@ -241,10 +285,94 @@ def sort_integrate_backward(
 sort_integrate_backward.launches = 0  # kernel launches since the last reset
 
 
+def sort_integrate_double_backward(
+    z_a: torch.Tensor,
+    vals_a: torch.Tensor,
+    z_b: torch.Tensor,
+    vals_b: torch.Tensor,
+    ray_norm: torch.Tensor,
+    g_feat: torch.Tensor,
+    g_depth: torch.Tensor,
+    g_wsum: torch.Tensor,
+    gg_a: torch.Tensor,
+    gg_b: torch.Tensor,
+    noise: Optional[torch.Tensor] = None,
+    clamp_mode: str = "softplus",
+    last_back: bool = False,
+    white_back: bool = False,
+) -> Tuple[torch.Tensor, ...]:
+    """K1's double backward on the tensors' device: the CUDA kernel on CUDA,
+    autograd through the plain version on the CPU. gg_a, gg_b are the
+    cotangents of the backward's gradients (the values' dtype and shapes);
+    returns the gradients of (vals_a, vals_b) in their dtype and of (g_feat,
+    g_depth, g_wsum) in fp32."""
+    if z_a.device.type == "cpu":
+        return sort_integrate_double_backward_plain(
+            z_a, vals_a, z_b, vals_b, ray_norm, g_feat, g_depth, g_wsum, gg_a, gg_b, noise=noise,
+            clamp_mode=clamp_mode, last_back=last_back, white_back=white_back)
+    if z_a.device.type != "cuda":
+        raise NotImplementedError(f"sort_integrate_double_backward has no kernel for {z_a.device}")
+    _check(z_a, vals_a, z_b, vals_b, ray_norm, noise, clamp_mode)
+    _check_cotangents(vals_a, g_feat, g_depth, g_wsum)
+    for name, gg, v in (("gg_a", gg_a, vals_a), ("gg_b", gg_b, vals_b)):
+        if gg.device != v.device or gg.dtype != v.dtype or gg.shape != v.shape \
+                or not gg.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {v.dtype} {tuple(v.shape)} tensor on "
+                             f"{v.device}, got {gg.dtype} {tuple(gg.shape)} on {gg.device}")
+    B, R, s_a, _ = z_a.shape
+    s_b = z_b.shape[2]
+    c1 = vals_a.shape[-1]
+    dev = z_a.device
+    d_a, d_b = torch.empty_like(vals_a), torch.empty_like(vals_b)
+    d_gf, d_gd, d_gw = torch.empty_like(g_feat), torch.empty_like(g_depth), torch.empty_like(g_wsum)
+    rc = _kernel_fns()[2](
+        _device_index(dev),
+        z_a.data_ptr(), vals_a.data_ptr(), s_a, z_b.data_ptr(), vals_b.data_ptr(), s_b,
+        ray_norm.data_ptr(), noise.data_ptr() if noise is not None else None, B * R, c1,
+        int(vals_a.dtype == torch.bfloat16), int(clamp_mode == "relu"), int(last_back),
+        int(white_back), g_feat.data_ptr(), g_depth.data_ptr(), g_wsum.data_ptr(),
+        gg_a.data_ptr(), gg_b.data_ptr(), d_a.data_ptr(), d_b.data_ptr(), d_gf.data_ptr(),
+        d_gd.data_ptr(), d_gw.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"ray_march double backward kernel launch failed: CUDA error {rc}")
+    sort_integrate_double_backward.launches += 1
+    return d_a, d_b, d_gf, d_gd, d_gw
+
+
+sort_integrate_double_backward.launches = 0  # kernel launches since the last reset
+
+
+class _SortIntegrateBackwardFn(torch.autograd.Function):
+    """K1's backward as a differentiable function of the values and the
+    cotangents: its forward launches the backward kernel, its backward the
+    double backward kernel. It differentiates once: a third derivative of K1
+    raises."""
+
+    @staticmethod
+    def forward(ctx, z_a, vals_a, z_b, vals_b, ray_norm, noise, g_feat, g_depth, g_wsum, opts):
+        ctx.save_for_backward(z_a, vals_a, z_b, vals_b, ray_norm, noise, g_feat, g_depth, g_wsum)
+        ctx.opts = opts
+        return sort_integrate_backward(z_a, vals_a, z_b, vals_b, ray_norm, g_feat, g_depth, g_wsum,
+                                       noise=noise, **opts)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gg_a, gg_b):
+        z_a, vals_a, z_b, vals_b, ray_norm, noise, g_feat, g_depth, g_wsum = ctx.saved_tensors
+        gg = [torch.zeros_like(v) if g is None else g.to(v.dtype).contiguous()
+              for g, v in ((gg_a, vals_a), (gg_b, vals_b))]
+        d_a, d_b, d_gf, d_gd, d_gw = sort_integrate_double_backward(
+            z_a, vals_a, z_b, vals_b, ray_norm, g_feat, g_depth, g_wsum, *gg, noise=noise,
+            **ctx.opts)
+        return None, d_a, None, d_b, None, None, d_gf, d_gd, d_gw, None
+
+
 class _SortIntegrateFn(torch.autograd.Function):
     """K1 on the card with its hand-written backward: gradients for the two
-    value slabs only. The depths, |ray_d| and the noise are constants of the
-    composite (the JAX render stop-gradients its importance depths)."""
+    value slabs only, differentiable once more (`_SortIntegrateBackwardFn`).
+    The depths, |ray_d| and the noise are constants of the composite (the JAX
+    render stop-gradients its importance depths)."""
 
     @staticmethod
     def forward(ctx, z_a, vals_a, z_b, vals_b, ray_norm, noise, clamp_mode, last_back, white_back):
@@ -260,14 +388,13 @@ class _SortIntegrateFn(torch.autograd.Function):
         return out
 
     @staticmethod
-    @torch.autograd.function.once_differentiable
     def backward(ctx, g_feat, g_depth, g_wsum):
         z_a, vals_a, z_b, vals_b, ray_norm, noise = ctx.saved_tensors
         B, R, _, c1 = vals_a.shape
         cot = [torch.zeros(B, R, n, device=vals_a.device) if g is None else g.float().contiguous()
                for g, n in ((g_feat, c1 - 1), (g_depth, 1), (g_wsum, 1))]
-        grad_a, grad_b = sort_integrate_backward(z_a, vals_a, z_b, vals_b, ray_norm, *cot,
-                                                 noise=noise, **ctx.opts)
+        grad_a, grad_b = _SortIntegrateBackwardFn.apply(z_a, vals_a, z_b, vals_b, ray_norm, noise,
+                                                        *cot, ctx.opts)
         return None, grad_a, None, grad_b, None, None, None, None, None
 
 

@@ -4,7 +4,7 @@ Counterpart of ide3d_tpu/train/augment.py, with its transform family:
 probability-gated pixel blits (x-flip, 90° rotations, integer translation) and
 general geometry (isotropic and anisotropic scale, pre- and post-rotation,
 fractional translation) composed into one 3x3 matrix per image and run as ONE
-bilinear inverse warp (`F.grid_sample`, align_corners=False, zeros padding,
+bilinear inverse warp (F.grid_sample's, align_corners=False, zeros padding,
 output grid at the pixel centres); brightness, contrast, luma flip, hue and
 saturation composed into one 4x4 colour matrix; and cutout. Every draw comes
 from an explicit torch.Generator (the JAX package's keys give other numbers),
@@ -14,8 +14,12 @@ so `augment_d_input` is split into the draws (`_geometry_matrix`,
 `ada_update`) is host arithmetic, as there.
 
 The warp samples in fp32 whatever the compute dtype: a bf16 sampling grid
-would misplace pixels by up to one at 512². The reference's sym6 wavelet
-anti-aliasing around the warp (`wavelet_aa=True`) is not ported and raises.
+would misplace pixels by up to one at 512². `wavelet_aa=True` wraps the warp
+in the reference's sym6 wavelet anti-aliasing as the JAX package runs it
+(`_apply_warp_wavelet`): reflect pad by a fixed margin, 2x sym6 upsample, the
+warp on the 2x grid, sym6 downsample with a crop, in fp32, the whole batch at
+once (the JAX package maps over the images only to fit a TPU's memory). The
+warp is `ops.grid_sample.sample_bilinear`, which differentiates twice (R1).
 """
 
 from __future__ import annotations
@@ -29,6 +33,20 @@ import torch
 import torch.nn.functional as F
 
 from ..models.blocks import DTYPES
+from ..ops.grid_sample import sample_bilinear
+from ..ops.upfirdn2d import downsample2d, setup_filter, upsample2d
+
+# Orthogonal wavelet decomposition low-pass: the public sym6 coefficients, as
+# the reference registers them for its geometric anti-aliasing.
+WAVELET_SYM6 = (
+    0.015404109327027373, 0.0034907120842174702, -0.11799011114819057,
+    -0.048311742585633, 0.4910559419267466, 0.787641141030194,
+    0.3379294217276218, -0.07263752278646252, -0.021060292512300564,
+    0.04472490177066578, 0.0017677118642428036, -0.007800708325034148,
+)
+# Reflect-pad margin of the wavelet warp as a fraction of the image width (the
+# reference computes it per batch from the transformed corners).
+WAVELET_MARGIN = 0.125
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,7 +75,7 @@ class AugmentConfig:
     saturation_std: float = 1.0
     cutout: float = 0.0
     cutout_size: float = 0.5
-    wavelet_aa: bool = False  # the reference's sym6 anti-aliasing: not ported, raises
+    wavelet_aa: bool = False  # sym6 wavelet anti-aliasing around the warp (~4x its cost)
     # dtype of the augmented stack; D casts its input to its own dtype anyway
     compute_dtype: str = "bfloat16"
 
@@ -197,40 +215,6 @@ def _cutout_mask(gen: torch.Generator, p: float, cfg: AugmentConfig, B: int, H: 
     return _cutout_mask_at(_rand(gen, (B, 2), device), gate, cfg.cutout_size, H, W)
 
 
-class _Warp(torch.autograd.Function):
-    """y = S x: bilinear sampling (zeros padding, align_corners=False) of NCHW
-    x at a fixed grid, linear in x. Its gradient S^T g is `_WarpT`, whose own
-    gradient is S again, so the warp differentiates to any order: R1 takes a
-    double backward through it, which aten's grid_sampler_2d_backward does not
-    have in every torch release. The grid gets no gradient (the JAX warp's
-    coords_grad=False)."""
-
-    @staticmethod
-    def forward(ctx, x, grid):
-        ctx.save_for_backward(x, grid)
-        return F.grid_sample(x, grid, mode="bilinear", padding_mode="zeros", align_corners=False)
-
-    @staticmethod
-    def backward(ctx, g):
-        x, grid = ctx.saved_tensors
-        return _WarpT.apply(g, x, grid), None
-
-
-class _WarpT(torch.autograd.Function):
-    """x_grad = S^T g, the transpose of `_Warp` (x gives only the shape)."""
-
-    @staticmethod
-    def forward(ctx, g, x, grid):
-        ctx.save_for_backward(grid)
-        return torch.ops.aten.grid_sampler_2d_backward(
-            g, x, grid, 0, 0, False, [True, False])[0]  # bilinear, zeros padding
-
-    @staticmethod
-    def backward(ctx, gg):
-        (grid,) = ctx.saved_tensors
-        return _Warp.apply(gg, grid), None, None
-
-
 def _sample_affine(images: torch.Tensor, A: torch.Tensor, Ho: int, Wo: int) -> torch.Tensor:
     """Bilinear-sample NHWC `images` on an [Ho, Wo] grid of pixel centres
     through the per-image inverse matrix A [B,3,3] (output -> input normalized
@@ -243,18 +227,51 @@ def _sample_affine(images: torch.Tensor, A: torch.Tensor, Ho: int, Wo: int) -> t
     gy, gx = torch.meshgrid(ys, xs, indexing="ij")
     grid = torch.stack([gx, gy, torch.ones_like(gx)], -1).reshape(1, Ho * Wo, 3)
     src = torch.einsum("bij,bnj->bni", A.float().detach(), grid.expand(B, -1, -1))
-    out = _Warp.apply(images.permute(0, 3, 1, 2).float().contiguous(),
-                      src[..., :2].reshape(B, Ho, Wo, 2).contiguous())
+    out = sample_bilinear(images.permute(0, 3, 1, 2).float().contiguous(),
+                          src[..., :2].reshape(B, Ho, Wo, 2).contiguous(), align_corners=False)
     return out.permute(0, 2, 3, 1).to(images.dtype)
 
 
 def _apply_warp(images: torch.Tensor, Gm: torch.Tensor,
                 cfg: Optional[AugmentConfig] = None) -> torch.Tensor:
-    """Run the inverse of the geometry matrix once: bilinear, zeros padding."""
-    if cfg is not None and cfg.wavelet_aa:
-        raise NotImplementedError("wavelet_aa (sym6 anti-aliased ADA warp) is not ported")
+    """Run the inverse of the geometry matrix once: bilinear, zeros padding;
+    with cfg.wavelet_aa, inside the sym6 up/down filtering."""
     _, H, W, _ = images.shape
-    return _sample_affine(images, torch.linalg.inv(Gm.float()), H, W)
+    Ginv = torch.linalg.inv(Gm.float())
+    if cfg is not None and cfg.wavelet_aa:
+        return _apply_warp_wavelet(images, Ginv)
+    return _sample_affine(images, Ginv, H, W)
+
+
+def _diag3(a: float, b: float, device) -> torch.Tensor:
+    return torch.diag(torch.tensor([a, b, 1.0], device=device))
+
+
+def _apply_warp_wavelet(images: torch.Tensor, Ginv: torch.Tensor) -> torch.Tensor:
+    """The reference's anti-aliased warp, as the JAX package's
+    `_apply_warp_wavelet`: reflect pad by m = ceil(WAVELET_MARGIN * max(H, W))
+    + 2 hz (at most min(H, W) - 1), 2x sym6 upsample, the inverse matrix
+    Ginv [B,3,3] (normalized coordinates) conjugated into centred pixels,
+    scaled to the 2x grid with its half-pixel shift, the bilinear warp onto
+    the [(H + 2 hz) * 2]² grid, then the sym6 downsample that crops back to
+    H x W. In fp32; returned in the images' dtype."""
+    B, H, W, C = images.shape
+    dev = images.device
+    f = setup_filter(WAVELET_SYM6)
+    hz = len(WAVELET_SYM6) // 4
+    m = min(int(math.ceil(WAVELET_MARGIN * max(H, W))) + 2 * hz, min(H, W) - 1)
+    x = F.pad(images.permute(0, 3, 1, 2).float(), (m, m, m, m), mode="reflect")
+    x = upsample2d(x, f, up=2)  # [B, C, (H + 2m) * 2, (W + 2m) * 2]
+    G1 = _diag3(W / 2.0, H / 2.0, dev) @ Ginv.float() @ _diag3(2.0 / W, 2.0 / H, dev)
+    G1 = _diag3(2.0, 2.0, dev) @ G1 @ _diag3(0.5, 0.5, dev)
+    G1 = _translate2d(*torch.full((2, 1), -0.5, device=dev)) @ G1 \
+        @ _translate2d(*torch.full((2, 1), 0.5, device=dev))
+    Ho, Wo = (H + 2 * hz) * 2, (W + 2 * hz) * 2
+    Hi, Wi = x.shape[2], x.shape[3]
+    A = _diag3(2.0 / Wi, 2.0 / Hi, dev) @ G1 @ _diag3(Wo / 2.0, Ho / 2.0, dev)
+    y = _sample_affine(x.permute(0, 2, 3, 1), A, Ho, Wo)
+    y = downsample2d(y.permute(0, 3, 1, 2), f, down=2, padding=-hz * 2, flip_filter=True)
+    return y.permute(0, 2, 3, 1).to(images.dtype)
 
 
 def _apply_color(images: torch.Tensor, Cm: torch.Tensor) -> torch.Tensor:

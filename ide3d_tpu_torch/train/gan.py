@@ -6,6 +6,10 @@ Counterpart of ide3d_tpu/train/gan.py, with the same losses and schedule:
   * lazy R1 on the real triple every `r1_interval` steps, at gamma/2 *
     interval, by a double backward (`torch.autograd.grad(create_graph=True)`)
     taken with respect to the PRE-augmentation triple, through ADA,
+  * lazy path-length regularization of G (`pl_weight > 0`) every
+    PL_INTERVAL steps, at pl_weight * interval, with the running pl_mean: the
+    ws-Jacobian of a random projection of the image, differentiated again, so
+    that K1 runs its double backward (ops/ray_march.py),
   * generator-pose conditioning swap and style mixing in the mapping,
   * ADA inside both losses (train/augment.py), one transform per sample for
     real and fake alike,
@@ -18,11 +22,10 @@ Counterpart of ide3d_tpu/train/gan.py, with the same losses and schedule:
 
 Every draw comes from one torch.Generator on the step's device. The losses
 take the D-input function `d_in` (triple -> D input) so that a caller can
-hold them at given augmentation draws. Not ported: path-length regularization
-(it would need K1's backward to be differentiable in turn: `pl_weight > 0`
-raises), the JAX package's split program cut and mesh shardings (XLA program
-structure). The step skips ADA at p = 0, where the JAX step runs an identity
-warp: the same D input up to the warp's rounding.
+hold them at given augmentation draws. Not ported: the JAX package's split
+program cut and mesh shardings (XLA program structure). The step skips ADA at
+p = 0, where the JAX step runs an identity warp: the same D input up to the
+warp's rounding.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import functools
+import math
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -41,6 +45,8 @@ from ..ops import conv2d_gradfix
 from .augment import AugmentConfig, augment_d_input
 
 Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # (img, raw_up, seg), NHWC
+PL_INTERVAL = 4  # path-length regularization runs on every 4th step
+PL_DECAY = 0.01  # the running pl_mean's rate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,14 +64,14 @@ class GanTrainConfig:
     gpc_swap_prob: float = 0.5  # generator-pose-conditioning swap (mapping only)
     use_ada: bool = True
     aug: AugmentConfig = AugmentConfig()
-    pl_weight: float = 0.0  # path-length regularization: not ported, > 0 raises
+    pl_weight: float = 0.0  # path-length regularization (0 = off)
     fake_reuse: bool = True  # G-first, the D phase reuses the G phase's fakes
 
 
 @dataclasses.dataclass
 class GanTrainState:
     """The training state: the three networks, both optimizers, the step and
-    pl_mean (kept for the checkpoint's layout; PL is not ported)."""
+    pl_mean (path-length regularization's running mean length)."""
 
     G: Ide3dGenerator
     D: Discriminator
@@ -215,6 +221,25 @@ def r1_penalty(D: Discriminator, real: Triple, c: torch.Tensor, d_in: DInput) ->
     return sum(g.square().sum() for g in grads if g is not None) / x[0].shape[0]
 
 
+def pl_penalty(G: Ide3dGenerator, ws: torch.Tensor, c: torch.Tensor, pl_mean: torch.Tensor,
+               gen: Optional[torch.Generator], y: Optional[torch.Tensor] = None):
+    """StyleGAN2 path-length regularization at the latents ws: the lengths
+    sqrt(mean_rows(sum_cols(J²))) of J = d sum(img * y) / d ws, with y ~ N(0, 1)
+    / sqrt(H W) drawn from `gen` unless given, and -> (mean((lengths - pl_mean)²),
+    lengths), differentiable in G's parameters (and in ws's own graph). The
+    synthesis draws its layer noise and render from `gen` (const noise and the
+    deterministic render without one)."""
+    img = G.synthesis(ws, c, noise_mode="random" if gen is not None else "const",
+                      generator=gen).float()
+    if y is None:
+        y = torch.randn(img.shape, generator=gen, device=img.device) / math.sqrt(
+            img.shape[1] * img.shape[2])
+    with conv2d_gradfix.no_weight_gradients():  # this pass needs the ws gradient only
+        (grads,) = torch.autograd.grad((img * y).sum(), ws, create_graph=True)
+    lengths = grads.float().square().sum(2).mean(1).sqrt()
+    return (lengths - pl_mean).square().mean(), lengths
+
+
 def _apply_grads(params, grads, opt: torch.optim.Optimizer) -> None:
     """Hand the gradients to the optimizer and step. An unused parameter gets a
     zero gradient, so that every Adam moment decays on every step as optax's does."""
@@ -234,10 +259,9 @@ def make_gan_train_step(tcfg: GanTrainConfig):
     batch: img [B,R,R,3] and seg [B,R,R,19] in the wire format (uint8) or the
     step's, c [B,25], on the state's device. `generator` lives on that device
     and gives every draw; ada_p is a host float. The networks and optimizers
-    are updated in place; stats are 0-d device tensors (nothing is read back)."""
-    if tcfg.pl_weight > 0:
-        raise NotImplementedError("path-length regularization (pl_weight > 0) is not ported: "
-                                  "it needs K1's backward to be differentiable")
+    are updated in place; stats are 0-d device tensors (nothing is read back).
+    With pl_weight > 0, stats also hold pl_penalty (0 off its interval) and
+    state.pl_mean follows the mean length."""
 
     def d_in_for(gen, ada_p):
         return functools.partial(d_input, tcfg=tcfg, gen=gen, ada_p=ada_p)
@@ -251,7 +275,20 @@ def make_gan_train_step(tcfg: GanTrainConfig):
         finally:
             D.requires_grad_(True)
         params = list(G.parameters())
-        _apply_grads(params, torch.autograd.grad(loss, params, allow_unused=True), state.opt_g)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        if tcfg.pl_weight > 0:
+            pl = torch.zeros((), device=z.device)
+            if state.step % PL_INTERVAL == 0:
+                ws = map_ws(G, z, batch["c"], tcfg, gen)
+                pl, lengths = pl_penalty(G, ws, batch["c"], state.pl_mean, gen)
+                pl_grads = torch.autograd.grad(pl, params, allow_unused=True)
+                scale = tcfg.pl_weight * PL_INTERVAL
+                grads = [g if r is None else (r * scale if g is None else g + scale * r)
+                         for g, r in zip(grads, pl_grads)]
+                mean = lengths.detach().mean()
+                state.pl_mean = state.pl_mean + PL_DECAY * (mean - state.pl_mean)
+            stats["pl_penalty"] = pl.detach()
+        _apply_grads(params, grads, state.opt_g)
         with torch.no_grad():
             w = G.mapping(z, batch["c"])[:, 0]
             G.mapping.w_avg.mul_(tcfg.w_avg_beta).add_(w.mean(dim=0), alpha=1.0 - tcfg.w_avg_beta)

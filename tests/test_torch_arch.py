@@ -257,7 +257,7 @@ def test_bridged_generator_matches_jax(arch, bridged):
         img = rng.uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32)
         ref = jax.jit(lambda p, i: jG(p, cond_img=i, return_all=True))(params, jnp.asarray(img))
         got = G(cond_img=torch.from_numpy(img), return_all=True)
-        jws, jcam = jG.encode(params, jnp.asarray(img))
+        jws, jcam = jax.jit(jG.encode)(params, jnp.asarray(img))
         ws, cam = G.encode(torch.from_numpy(img))
         _close("encode ws", ws.numpy(), np.asarray(jws))
         _close("encode camera", cam.numpy(), np.asarray(jcam))
@@ -312,12 +312,15 @@ def test_hybrid_table_carries_the_volume_and_sample_voxel_matches_jax(bridged):
     assert float((S(ws, c, table=(table, None)) - uncached).abs().max()) > 1e-4
 
     coords = np.random.RandomState(5).uniform(-1, 1, (1, 33, 3)).astype(np.float32)
-    jws = jnp.asarray(ws.numpy())
     js = jG.synthesis
-    img_v, seg_v = js.generate_planes(params["synthesis"], jws)
-    jvol = js._feature_volume()(params["synthesis"]["feature_volume"], jws[:, 0])
-    want = js.renderer.sample_voxel(params["synthesis"]["renderer"], img_v, seg_v,
-                                    jnp.asarray(coords), volume=jvol)
+
+    @jax.jit  # one compile of the JAX reference, not one per op
+    def sample_voxel(p, jws, x):
+        img_v, seg_v = js.generate_planes(p, jws)
+        jvol = js._feature_volume()(p["feature_volume"], jws[:, 0])
+        return js.renderer.sample_voxel(p["renderer"], img_v, seg_v, x, volume=jvol)
+
+    want = sample_voxel(params["synthesis"], ws.numpy(), coords)
     tv, sv = S.generate_planes(ws)
     got = S.renderer.sample_voxel(tv, sv, torch.from_numpy(coords), volume=S.volume(ws))
     _close("hybrid sample_voxel", got.numpy(), np.asarray(want))

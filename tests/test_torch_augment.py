@@ -8,6 +8,7 @@ post-rotation each at p_rot. The p controller is host arithmetic and must
 match exactly. Inputs are made with numpy from a seed.
 """
 
+import functools
 import math
 
 import jax
@@ -17,6 +18,7 @@ import pytest
 import torch
 
 from ide3d_tpu.train import augment as jaug
+from ide3d_tpu_torch.ops import grid_sample
 from ide3d_tpu_torch.train import augment as taug
 from torch_threads import module_one_intra_op_thread  # noqa: F401 (an autouse fixture)
 
@@ -42,18 +44,27 @@ def close(got, ref, atol=1e-5):
     np.testing.assert_allclose(got, ref, atol=atol, rtol=atol)
 
 
-def _jax_matrices(p, B, W, H, seed=0):
-    keys = jax.random.split(jax.random.PRNGKey(seed), 16)
+@functools.partial(jax.jit, static_argnums=(0, 1, 2, 3))
+def _jax_matrix_draws(p, B, W, H, key):
+    keys = jax.random.split(key, 16)
     cfg = jaug.AugmentConfig()
-    return (np.asarray(jaug._geometry_matrix(keys, p, cfg, B, W, H)),
-            np.asarray(jaug._color_matrix(keys, p, cfg, B)))
+    return jaug._geometry_matrix(keys, p, cfg, B, W, H), jaug._color_matrix(keys, p, cfg, B)
+
+
+def _jax_matrices(p, B, W, H, seed=0):
+    """JAX's geometry and colour matrices (one compiled program of the draws,
+    not one compile per op)."""
+    return tuple(np.asarray(m) for m in _jax_matrix_draws(p, B, W, H, jax.random.PRNGKey(seed)))
+
+
+_jax_warp = jax.jit(jaug._apply_warp)
 
 
 def test_warp_matches_jax_at_given_matrices():
     B, H, W = 4, 16, 12
     Gm, _ = _jax_matrices(0.8, B, W, H)
     img = np.random.RandomState(0).randn(B, H, W, 5).astype(np.float32)
-    ref = jaug._apply_warp(jnp.asarray(img), jnp.asarray(Gm))
+    ref = _jax_warp(jnp.asarray(img), jnp.asarray(Gm))
     close(taug._apply_warp(t(img), t(Gm)).numpy(), ref)
 
 
@@ -86,7 +97,7 @@ def test_apply_augment_matches_jax_composition():
     img, raw = (rng.randn(B, R, R, 3).astype(np.float32) for _ in range(2))
     seg = rng.randn(B, R, R, 19).astype(np.float32)
     mask = (rng.rand(B, R, R) > 0.3).astype(np.float32)
-    stack = jaug._apply_warp(jnp.concatenate([img, raw, seg], -1), jnp.asarray(Gm))
+    stack = _jax_warp(jnp.concatenate([img, raw, seg], -1), jnp.asarray(Gm))
     ref = (jaug._apply_color(stack[..., :3], jnp.asarray(Cm)) * mask[..., None],
            jaug._apply_color(stack[..., 3:6], jnp.asarray(Cm)) * mask[..., None],
            stack[..., 6:] * mask[..., None])
@@ -160,15 +171,11 @@ def test_warp_differentiates_twice():
     x = torch.randn(2, 2, 5, 4, dtype=torch.float64, requires_grad=True)
     grid = torch.rand(2, 3, 5, 2, generator=torch.Generator().manual_seed(0),
                       dtype=torch.float64) * 2.4 - 1.2
-    assert torch.autograd.gradgradcheck(lambda x: taug._Warp.apply(x, grid), (x,))
+    assert torch.autograd.gradgradcheck(lambda x: grid_sample._Sample.apply(x, grid, False), (x,))
     g = torch.randn(2, 2, 3, 5, dtype=torch.float64)
     ref = torch.autograd.grad(torch.nn.functional.grid_sample(x, grid, align_corners=False), x, g)[0]
-    close(torch.autograd.grad(taug._Warp.apply(x, grid), x, g)[0].numpy(), ref.numpy(), atol=1e-12)
-
-
-def test_wavelet_aa_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        taug._apply_warp(torch.zeros(1, 4, 4, 3), torch.eye(3)[None], taug.AugmentConfig(wavelet_aa=True))
+    close(torch.autograd.grad(grid_sample._Sample.apply(x, grid, False), x, g)[0].numpy(), ref.numpy(),
+          atol=1e-12)
 
 
 def test_ada_controller_matches_jax():

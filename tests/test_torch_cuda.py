@@ -168,6 +168,71 @@ def test_k1_backward_back_to_back_on_card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape,opts", [
+    ((96, 96, 52, "bfloat16", False), dict()),  # the training render's
+    ((96, 96, 52, "float32", False), dict(noise=True)),
+    ((8, 12, 4, "float32", False), dict(last_back=True, clamp_mode="relu")),
+    ((5, 130, 4, "float32", False), dict(white_back=True)),  # S = 135, odd halves
+    ((1, 1, 2, "float32", False), dict(last_back=True)),  # 1-sample halves, one channel
+    ((200, 56, 256, "float32", False),  # S = 256, C + 1 = 256
+     dict(clamp_mode="relu", last_back=True, white_back=True, noise=True)),
+])
+@pytest.mark.parametrize("sorted_halves", [False, True])
+def test_k1_double_backward_matches_plain_on_card(shape, opts, sorted_halves):
+    """The CUDA double backward against autograd (create_graph) through the
+    plain version: max abs err <= 1e-4 x max|grad| in fp32, 1e-2 x in bf16, of
+    the value gradients and of the cotangent gradients, each group against
+    its own max."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    args, cot, opts = _k1_backward_case(shape, opts, sorted_halves,
+                                        R=512 if shape[2] == 256 else 1024)
+    rng = np.random.RandomState(7)
+    gg = [t(rng.randn(*v.shape).astype(np.float32)).to("cuda", v.dtype) for v in (args[1], args[3])]
+    before = ray_march.sort_integrate_double_backward.launches
+    got = ray_march.sort_integrate_double_backward(*args, *cot, *gg, **opts)
+    assert ray_march.sort_integrate_double_backward.launches == before + 1
+    ref = ray_march.sort_integrate_double_backward_plain(*args, *cot, *gg, **opts)
+    tol = 1e-4 if args[1].dtype == torch.float32 else 1e-2
+    for group in ((got[:2], ref[:2]), (got[2:], ref[2:])):
+        scale = max(float(r.float().abs().max()) for r in group[1])
+        for g, r in zip(*group):
+            assert g.dtype == r.dtype and g.shape == r.shape
+            assert torch.isfinite(g.float()).all()
+            assert float((g.float() - r.float()).abs().max()) <= tol * scale
+
+
+@pytest.mark.cuda
+def test_k1_differentiates_twice_on_card():
+    """A create_graph gradient of K1 on the card, differentiated again, equals
+    the CPU's (plain K1) within 1e-4 of its max; one backward and one double
+    backward launch; a third derivative raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    args, cot, opts = _k1_backward_case((16, 24, 9, "float32", False), dict(last_back=True), False,
+                                        R=256)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        a = [x.to(dev) for x in args]
+        va, vb = a[1].clone().requires_grad_(), a[3].clone().requires_grad_()
+        outs = ray_march.sort_integrate(a[0], va, a[2], vb, a[4], **opts)
+        before = (ray_march.sort_integrate_backward.launches,
+                  ray_march.sort_integrate_double_backward.launches)
+        g = torch.autograd.grad(sum((o * c.to(dev)).sum() for o, c in zip(outs, cot)), (va, vb),
+                                create_graph=True)
+        second = torch.autograd.grad(sum(x.square().sum() for x in g), (va, vb), create_graph=True)
+        if dev == "cuda":
+            assert (ray_march.sort_integrate_backward.launches,
+                    ray_march.sort_integrate_double_backward.launches) == (before[0] + 1, before[1] + 1)
+            with pytest.raises(RuntimeError, match="twice"):
+                sum(x.sum() for x in second).backward()
+        res[dev] = [x.detach().cpu() for x in second]
+    scale = max(float(x.abs().max()) for x in res["cpu"])
+    for got, ref in zip(res["cuda"], res["cpu"]):
+        assert float((got - ref).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
 def test_render_fine_carries_the_gradient_on_card():
     """The fine composite on the card is differentiable: a loss on render_fine's
     outputs reaches the planes and the decoder through K1's backward, with the

@@ -338,18 +338,13 @@ def _perturbed(params, rng):
         and path[-1].key not in ("noise_const", "noise_strength") else x, params)
 
 
-@pytest.mark.parametrize("freeze_geometry", [True, False])
-def test_nada_step_matches_jax(bridged, clip_pair, monkeypatch, freeze_geometry):
-    """One NADA step against the JAX step: the loss within 1e-5, the trained
-    parameters' gradients tensor by tensor against jax.grad of the JAX step's
-    loss (train/nada.py:72-82, written out) within 1e-4 x max|grad|, the
-    updated synthesis within 1e-4 of its largest parameter, and every other
-    parameter of the trained copy bit-identical. With betas (0, 0.99) Adam's
-    first update is lr g / (|g| + eps), about lr sign(g): where |g| is near
-    eps (1e-8) fp32 rounding moves it by up to ~lr, so the update is held
-    through the gradients."""
-    jG, params, G = bridged
-    jm, cp, m = clip_pair
+@pytest.fixture(scope="module")
+def nada_case(bridged, clip_pair):
+    """The NADA inputs and jax.grad of the JAX step's loss (train/nada.py:72-82,
+    written out) in the synthesis parameters: the same for both settings of
+    freeze_geometry, so built once."""
+    jG, params, _ = bridged
+    jm, cp, _ = clip_pair
     rng = np.random.RandomState(9)
     tdir = rng.randn(16).astype(np.float32)
     z = rng.randn(2, 512).astype(np.float32)
@@ -366,6 +361,22 @@ def test_nada_step_matches_jax(bridged, clip_pair, monkeypatch, freeze_geometry)
         return jnp.mean(1.0 - d @ (tdir / (np.linalg.norm(tdir) + 1e-8)))
 
     jgrad = _np(jax.jit(jax.grad(jloss))(jax.tree_util.tree_map(jnp.asarray, start["synthesis"])))
+    return tdir, z, start, jembed, c, jgrad
+
+
+@pytest.mark.parametrize("freeze_geometry", [True, False])
+def test_nada_step_matches_jax(bridged, clip_pair, nada_case, monkeypatch, freeze_geometry):
+    """One NADA step against the JAX step: the loss within 1e-5, the trained
+    parameters' gradients tensor by tensor against jax.grad of the JAX step's
+    loss (train/nada.py:72-82, written out) within 1e-4 x max|grad|, the
+    updated synthesis within 1e-4 of its largest parameter, and every other
+    parameter of the trained copy bit-identical. With betas (0, 0.99) Adam's
+    first update is lr g / (|g| + eps), about lr sign(g): where |g| is near
+    eps (1e-8) fp32 rounding moves it by up to ~lr, so the update is held
+    through the gradients."""
+    jG, params, G = bridged
+    _, _, m = clip_pair
+    tdir, z, start, jembed, c, jgrad = nada_case
     jcfg = jnada.NadaConfig(freeze_geometry=freeze_geometry)
     st = jnada.init_nada_state(jG, params, jcfg)._replace(
         params_train=jax.tree_util.tree_map(jnp.asarray, start))
@@ -443,13 +454,27 @@ def _noise_on(params):
 # ------------------------------------------------------------------------ CLIs
 
 
+class _JittedSynthesis:
+    """The JAX G with its synthesis under one jax.jit: the same function, one
+    compile instead of the hundreds of per-op compiles of the JAX
+    styleclip_edit CLI's eager G calls."""
+
+    def __init__(self, jG):
+        self._jG = jG
+        self.synthesis = jax.jit(jG.synthesis)
+
+    def __getattr__(self, name):
+        return getattr(self._jG, name)
+
+
 @pytest.fixture
 def both_clis(bridged, monkeypatch):
-    """Both packages' load_generator hand out the bridged G; their
-    save_image_grid capture the images: {"jax": {name: array}, "port": {...}}."""
+    """Both packages' load_generator hand out the bridged G (the JAX one with
+    a jitted synthesis); their save_image_grid capture the images: {"jax":
+    {name: array}, "port": {...}}."""
     jG, params, G = bridged
     saved = {"jax": {}, "port": {}}
-    monkeypatch.setattr(jcommon, "load_generator", lambda network: (jG, params))
+    monkeypatch.setattr(jcommon, "load_generator", lambda network: (_JittedSynthesis(jG), params))
     monkeypatch.setattr(tcommon, "load_generator", lambda network, device="cuda": G.to(device))
 
     def capture(key):

@@ -362,12 +362,13 @@ def test_locality_loss_matches_jax_given_w_samples(bridged, inputs):
     rng = np.random.RandomState(6)
     w = np.asarray(G.mapping(t(rng.randn(1, 512)), t(c)).detach())
     tuned_p = jax.tree_util.tree_map(  # a tuned G: every synthesis leaf moved a little
-        lambda x: x + 0.01 * jnp.asarray(rng.randn(*x.shape), x.dtype), gp["synthesis"])
+        lambda x: np.asarray(x) + np.float32(0.01) * np.asarray(rng.randn(*x.shape), x.dtype),
+        gp["synthesis"])
     cfg = jpti.PtiConfig(locality_samples=2)
     key = jax.random.PRNGKey(9)
     z = jax.random.normal(key, (2, 512))
-    w_samples = jG.mapping(gp["mapping"], z, jnp.broadcast_to(jnp.asarray(c), (2, 25)),
-                           truncation_psi=0.5)
+    w_samples = jax.jit(lambda p, z, c: jG.mapping(p, z, c, truncation_psi=0.5))(
+        gp["mapping"], z, jnp.broadcast_to(jnp.asarray(c), (2, 25)))
 
     def lp(x, y):
         return jL.multiscale_feature_loss(jpti.default_pyramid_feats, x, y)

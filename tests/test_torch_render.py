@@ -11,6 +11,7 @@ the plain version on the card by tests/test_torch_cuda.py and chip_smoke.py.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -199,8 +200,8 @@ def test_k1_plain_options_match_integrate_rays_merged(opts, halves):
     fs = np.concatenate([va, vb], 2)
     if noise is not None:
         fs[..., -1] += noise
-    comp, depth, w = jint.integrate_rays_merged(
-        jnp.asarray(fs), jnp.asarray(d), jnp.asarray(np.concatenate([za, zb], 2)), **opts)
+    comp, depth, w = jax.jit(functools.partial(jint.integrate_rays_merged, **opts))(
+        jnp.asarray(fs), jnp.asarray(d), jnp.asarray(np.concatenate([za, zb], 2)))
     norm = np.linalg.norm(d, axis=-1, keepdims=True)
     got = ray_march.sort_integrate(t(za), t(va), t(zb), t(vb), t(norm),
                                    noise=None if noise is None else t(noise), **opts)
@@ -304,9 +305,10 @@ def test_decode_and_sample_voxel(renderer_pair):
     rng = np.random.RandomState(6)
     feat = rng.randn(3, 10, 8).astype(np.float32)
     close(tr.decode_features(t(feat)).detach().numpy(),
-          jr.decode_features(params, jnp.asarray(feat)))
+          jax.jit(jr.decode_features)(params, jnp.asarray(feat)))
     coords = rng.rand(2, 64, 3).astype(np.float32) * 2.2 - 1.1
-    ref = jr.sample_voxel(params, jnp.asarray(img_v), jnp.asarray(seg_v), jnp.asarray(coords))
+    ref = jax.jit(jr.sample_voxel)(params, jnp.asarray(img_v), jnp.asarray(seg_v),
+                                   jnp.asarray(coords))
     got = tr.sample_voxel(t(img_v), t(seg_v), t(coords))
     close(got.detach().numpy(), ref)
 

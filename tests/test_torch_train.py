@@ -159,7 +159,7 @@ def test_plain_k1_gradient_matches_jax_integrate_rays_merged(opts):
         comp, depth, w = jint.integrate_rays_merged(fs, jnp.asarray(d), z, **opts)
         return jnp.sum(comp * gf) + jnp.sum(depth * gd) + jnp.sum(w.sum(-2) * gw)
 
-    ref = np.asarray(jax.grad(jloss)(jnp.asarray(np.concatenate([va, vb], 2))))
+    ref = np.asarray(jax.jit(jax.grad(jloss))(jnp.asarray(np.concatenate([va, vb], 2))))
     norm = np.linalg.norm(d, axis=-1, keepdims=True)
     got = ray_march.sort_integrate_backward(
         t(za), t(va), t(zb), t(vb), t(norm), t(gf), t(gd), t(gw),

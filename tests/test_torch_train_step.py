@@ -87,11 +87,6 @@ def test_step_d_first_without_fake_reuse():
     assert state.step == 1 and all(torch.isfinite(v) for v in stats.values())
 
 
-def test_path_length_regularization_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        gan.make_gan_train_step(gan.GanTrainConfig(pl_weight=2.0))
-
-
 def test_stats_accumulator():
     acc = StatsAccumulator()
     for v in (1.0, 2.0, 6.0):
@@ -174,21 +169,17 @@ def test_train_gan_cli_runs_snapshots_and_resumes(tmp_path):
     assert meta["step"] == 2 and meta["ada_p"] == 0.3
 
 
-@pytest.mark.parametrize("flag", [["--wavelet-aa"], ["--pl-weight", "2"]])
-def test_train_gan_refuses_what_is_not_ported(tmp_path, flag):
-    from ide3d_tpu_torch.apps.train_gan import main
-
-    with pytest.raises(NotImplementedError):
-        main(["--data", "x", "--seg", "y", "--outdir", str(tmp_path), "--device", "cpu"] + flag)
-
-
 def test_training_modules_leave_jax_out():
-    """The training modules and the metric suite that train_gan --metrics
-    runs import neither jax nor the JAX package."""
+    """The training modules, the samplers and K1 (with its double backward),
+    the metric suite that train_gan --metrics runs, and the port's synthetic
+    dataset tool import neither jax nor the JAX package."""
     import subprocess
     import sys
 
-    code = ("import sys, ide3d_tpu_torch.apps.train_gan, ide3d_tpu_torch.train.gan, "
+    code = ("import sys; sys.path.insert(0, 'tools'); import torch_make_synthetic_dataset, "
+            "ide3d_tpu_torch.apps.train_gan, ide3d_tpu_torch.train.gan, "
+            "ide3d_tpu_torch.train.augment, ide3d_tpu_torch.ops.grid_sample, "
+            "ide3d_tpu_torch.ops.ray_march, ide3d_tpu_torch.ops.upfirdn2d, "
             "ide3d_tpu_torch.data.dataset, ide3d_tpu_torch.io.checkpoint, "
             "ide3d_tpu_torch.parallel.stats, ide3d_tpu_torch.metrics.metric_main, "
             "ide3d_tpu_torch.metrics.lpips, ide3d_tpu_torch.metrics.perceptual_path_length, "
