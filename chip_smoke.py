@@ -196,11 +196,13 @@ Phases, one line each; any failure ends the run with a non-zero exit:
                batch of 8).
  14. parity - K1's double backward against autograd (create_graph) through its
                plain version at B=4, R=4096, S=96+96, C=51, fp32 and bf16
-               values, sorted and unsorted halves, each option: max abs err /
-               max|grad| of the value gradients and of the cotangent gradients
-               <= 1e-4 (fp32), <= 1e-2 (bf16); timed from CUDA graphs at the
-               training layout beside its byte bound, the plain version by
-               events. The tiny fp32 preset's PL penalty, mean length and G
+               values, sorted and unsorted halves, each option, and bf16 with
+               a misaligned gg_a (the streamed plan): max abs err / max|grad|
+               of the value gradients and of the cotangent gradients <= 1e-4
+               (fp32), <= 1e-2 (bf16), each check's launch plan read back from
+               the C++; timed from CUDA graphs at the training layout beside
+               its byte bound, staged and streamed in turns, the plain version
+               by events. The tiny fp32 preset's PL penalty, mean length and G
                gradients at given ws and y, card against CPU (<= 1e-4 x max),
                K1 (1, 2, 1). GeneratorConfig() + Discriminator(img_channels=25),
                bf16, batch 4, pl_weight 2: 5 steps (PL on 0 and 4, R1 on 0),
@@ -240,7 +242,10 @@ entry, `sort_integrate_double_backward`: `ms` its graph time at B=4, bf16,
 14's flagship steps, `max_abs_err` relative to max|grad| over every option,
 `train_step` the PL / plain and wavelet / bilinear step times and peaks; and
 `parity_launches` (the counts read on phase 14's PL and plain steps, each
-checked against PARITY_LAUNCHES) to the backward's and its own.
+checked against PARITY_LAUNCHES) to the backward's and its own. The double
+backward's `design` names the PR of its design, `plan` the launch plan of the
+timed shape, `streamed_ms` the streamed plan's graph time on the same inputs
+with gg_a misaligned.
 """
 
 from __future__ import annotations
@@ -371,7 +376,8 @@ def phase_build() -> None:
     for ln in log.splitlines():  # ptxas -v: each entry function, then its registers
         if "Compiling entry function" in ln:
             name = ln.split("'")[1] if "'" in ln else ln
-            kind = ("double_backward" if "double_backward_kernel" in name else
+            kind = ("double_backward_streamed" if "double_backward_streamed_kernel" in name else
+                    "double_backward" if "double_backward_kernel" in name else
                     "backward" if "backward_kernel" in name else "forward")
             kernel = (f"{kind}<{'bf16' if '__nv_bfloat16' in name else 'fp32'},"
                       f"{'relu' if 'Lb1E' in name else 'softplus'}>")
@@ -3928,52 +3934,85 @@ def group_err(got, ref) -> float:
     return max(rel_err(got[:2], ref[:2]), rel_err(got[2:], ref[2:]))
 
 
+def misaligned_copy(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of x whose data starts 4 bytes past a 16-byte boundary."""
+    n = x.numel() * x.element_size()
+    buf = torch.empty(n + 64, dtype=torch.uint8, device=x.device)
+    off = (4 - buf.data_ptr()) % 16
+    return buf[off:off + n].view(x.dtype).view(x.shape).copy_(x)
+
+
 def parity_double_backward(smi: str) -> dict:
     """K1's double backward against autograd through its plain version at
-    B=4, every option, fp32 and bf16 values, sorted and unsorted halves; then
-    timed at the training render's layout."""
-    from ide3d_tpu_torch.ops.ray_march import (sort_integrate_double_backward,
+    B=4, every option, fp32 and bf16 values, sorted and unsorted halves, and
+    on the streamed plan (a misaligned gg_a); then timed at the training
+    render's layout, staged and streamed (the first design), each plan read
+    back from the kernel's C++."""
+    from ide3d_tpu_torch.ops.ray_march import (double_backward_plan, sort_integrate_double_backward,
                                                sort_integrate_double_backward_plain)
 
     gen = torch.Generator().manual_seed(14)
-    errs = {}
+    errs, plans = {}, {}
+
+    def check(name, args, cot, gg, kw, tol):
+        got = sort_integrate_double_backward(*args, *cot, *gg, **kw)
+        ref = sort_integrate_double_backward_plain(*args, *cot, *gg, **kw)
+        torch.cuda.synchronize()
+        _check_finite(f"K1 double backward {name}", [g.float() for g in got])
+        err = group_err(got, ref)
+        if err > tol or any(g.dtype != r.dtype for g, r in zip(got, ref)):
+            raise RuntimeError(f"K1 double backward vs plain ({name}): max abs err / max|grad| "
+                               f"{err} > {tol}")
+        errs[name] = err
+        plans.setdefault(double_backward_plan(*args, *cot, *gg, **kw), []).append(name)
+
     for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
         for sorted_halves in (False, True):
             args = k1_inputs(gen, dtype, B=4, sorted_halves=sorted_halves)
             cot = _k1_cotangents(gen, args)
             gg = [torch.randn(v.shape, generator=gen).to("cuda", dtype) for v in (args[1], args[3])]
             for opts in K1_OPTIONS:
-                kw = _k1_options(opts, args, gen)
-                got = sort_integrate_double_backward(*args, *cot, *gg, **kw)
-                ref = sort_integrate_double_backward_plain(*args, *cot, *gg, **kw)
-                torch.cuda.synchronize()
-                _check_finite(f"K1 double backward {opts}", [g.float() for g in got])
-                err = group_err(got, ref)
                 name = f"{str(dtype).split('.')[-1]} {'sorted' if sorted_halves else 'unsorted'} " \
                        f"{','.join(opts) or 'softplus'}"
-                if err > tol or any(g.dtype != r.dtype for g, r in zip(got, ref)):
-                    raise RuntimeError(f"K1 double backward vs plain ({name}): max abs err / "
-                                       f"max|grad| {err} > {tol}")
-                errs[name] = err
-                del got, ref
+                check(name, args, cot, gg, _k1_options(opts, args, gen), tol)
+                if dtype == torch.bfloat16 and not sorted_halves:  # the streamed plan
+                    check(f"{name} misaligned gg_a", args, cot, [misaligned_copy(gg[0]), gg[1]],
+                          _k1_options(opts, args, gen), tol)
             del args, cot, gg
+    if "streamed" not in plans or "staged" not in plans:
+        raise RuntimeError(f"K1 double backward: checked plans {sorted(plans)}, want staged and "
+                           f"streamed")
 
     sets = [(a, c, [torch.randn(v.shape, generator=gen).to("cuda", v.dtype) for v in (a[1], a[3])])
             for a, c in training_k1_sets(gen)]
+    streamed = [(a, c, [misaligned_copy(g[0]), g[1]]) for a, c, g in sets]
+    plan = double_backward_plan(*sets[0][0], *sets[0][1], *sets[0][2])
+    streamed_plan = double_backward_plan(*streamed[0][0], *streamed[0][1], *streamed[0][2])
+    if (plan, streamed_plan) != ("staged", "streamed"):
+        raise RuntimeError(f"K1 double backward at the training layout: plans {plan}, "
+                           f"{streamed_plan}")
     dbl = [lambda s=s: sort_integrate_double_backward(*s[0], *s[1], *s[2]) for s in sets]
-    t_dbl = [graph_ms(dbl, 10), graph_ms(dbl, 10)]
+    dbl_streamed = [lambda s=s: sort_integrate_double_backward(*s[0], *s[1], *s[2])
+                    for s in streamed]
+    t_dbl, t_streamed = [], []
+    for _ in range(2):  # in turns
+        t_dbl.append(graph_ms(dbl, 10))
+        t_streamed.append(graph_ms(dbl_streamed, 4))
     plain = [event_median_ms(lambda s=s: sort_integrate_double_backward_plain(*s[0], *s[1], *s[2]),
                              runs=5) for s in sets]
     nbytes = k1_double_backward_bytes(*sets[0])
     out = {"max_abs_err": max(errs.values()), "errs": errs, "ms": min(t_dbl), "plain_ms": min(plain),
-           "bound_ms": nbytes / HBM_BYTES_PER_MS, "bytes": nbytes}
+           "bound_ms": nbytes / HBM_BYTES_PER_MS, "bytes": nbytes, "plan": plan,
+           "streamed_ms": min(t_streamed)}
     out["bound_share"] = out["bound_ms"] / out["ms"]
     print(f"parity: K1 double backward bf16 B=4 R=4096 S=96+96 C=51 (coarse sorted, fine "
-          f"unsorted): {t_dbl[0]:.4f}/{t_dbl[1]:.4f} ms, {nbytes} B, bound "
-          f"{out['bound_ms'] * 1e3:.1f} us ({100 * out['bound_share']:.1f}% of it); plain double "
-          f"backward (autograd, event ms) {[round(p, 4) for p in plain]} ({smi}); vs plain, max abs "
-          f"err / max|grad| {json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})} (limits "
-          f"fp32 1e-4, bf16 1e-2)", flush=True)
+          f"unsorted): {plan} plan {t_dbl[0]:.4f}/{t_dbl[1]:.4f} ms, {nbytes} B, bound "
+          f"{out['bound_ms'] * 1e3:.1f} us ({100 * out['bound_share']:.1f}% of it); the same "
+          f"with a misaligned gg_a, {streamed_plan} plan (the first design) {t_streamed[0]:.4f}/"
+          f"{t_streamed[1]:.4f} ms; plain double backward (autograd, event ms) "
+          f"{[round(p, 4) for p in plain]} ({smi}); vs plain, max abs err / max|grad| "
+          f"{json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})} (limits fp32 1e-4, bf16 "
+          f"1e-2); plans of the checks {json.dumps(plans)}", flush=True)
     return out
 
 
@@ -4280,6 +4319,9 @@ def main() -> None:
         "library_ms": None,
         "bytes": kd["bytes"],
         "bound_share": kd["bound_share"],
+        "design": "PR 13",
+        "plan": kd["plan"],
+        "streamed_ms": kd["streamed_ms"],
         "parity_launches": {"pl_step": par["full"]["pl_step_launches"][2],
                             "plain_step": par["full"]["plain_step_launches"][2],
                             "train_gan_2_steps": par["app"]["launches"][2]},

@@ -102,28 +102,35 @@ struct Plan {
   int vals_off;     // bytes: the values' offset in the stage
   int chunk_rows;   // rows of values the stage holds
   int stride;       // bytes of the stage; the vector sums' partials overlay its values
+  int gg_off;       // bytes: the gg slab's offset in the stage (the double backward), else 0
 };
 
 int round_up(int n, int m) { return (n + m - 1) / m * m; }
 
-Plan make_plan(int s_a, int s_b, int channels, int esize, bool noise, bool aligned) {
+// `gg`: the stage also holds a second slab of the values' shape after them
+// (the double backward's gg); `max_stage` bounds a staged ray's bytes.
+Plan make_plan(int s_a, int s_b, int channels, int esize, bool noise, bool gg, bool aligned,
+               int max_stage) {
   const int S = s_a + s_b, rb = channels * esize;
   Plan p;
   p.zb_off = round_up(s_a, 4);
   p.noise_off = p.zb_off + round_up(s_b, 4);
   p.vals_off = 4 * (p.noise_off + (noise ? round_up(S, 4) : 0));
+  p.gg_off = gg ? p.vals_off + S * rb : 0;
   int g = 16;  // gcd(rb, 16)
   while (rb % g) g >>= 1;
   p.unit_rows = 16 / g;
   p.unit_vecs = p.unit_rows * rb / 16;
   p.vec = p.unit_vecs <= 32 && rb >= 16;
   p.staged = aligned && s_a % 4 == 0 && s_b % 4 == 0 && (s_a * rb) % 16 == 0 &&
-             (s_b * rb) % 16 == 0 && p.vals_off + S * rb <= kMaxStageBytes;
+             (s_b * rb) % 16 == 0 && p.vals_off + (gg ? 2 : 1) * S * rb <= max_stage &&
+             (p.vec || !gg);  // the double backward stages rows its vector sums take
   int bytes;
   if (p.staged) {
     p.chunk_rows = S;
     const int partials = p.vec ? 4 * kWarps * p.unit_rows * channels : 0;
-    bytes = p.vals_off + (S * rb > partials ? S * rb : partials);
+    bytes = gg ? p.gg_off + S * rb  // the double backward keeps its partials outside the stage
+               : p.vals_off + (S * rb > partials ? S * rb : partials);
   } else {
     p.vec = 0;
     p.chunk_rows = kStreamChunkBytes / rb < S ? kStreamChunkBytes / rb : S;
@@ -247,20 +254,27 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
-// Thread 0: fill `stage` with ray `ray`'s depths, noise and values.
-template <typename T>
-__device__ void issue_ray(const Args<T>& a, int ray, unsigned char* stage, uint64_t* bar) {
+// Thread 0: fill `stage` with ray `ray`'s depths, noise and values, and with
+// kGg (the double backward) its slab of gg_a, gg_b at the plan's gg_off.
+template <typename T, bool kGg = false>
+__device__ void issue_ray(const Args<T>& a, int ray, unsigned char* stage, uint64_t* bar,
+                          const T* gg_a = nullptr, const T* gg_b = nullptr) {
   const Plan& pl = a.plan;
   const int s_a = a.s_a, s_b = a.s_b, S = s_a + s_b;
   const uint32_t rb = a.channels * sizeof(T);
   float* z = reinterpret_cast<float*>(stage);
   unsigned char* v = stage + pl.vals_off;
-  mbar_expect_tx(bar, S * 4u + S * rb + (a.noise ? S * 4u : 0u));
+  mbar_expect_tx(bar, S * 4u + S * rb * (kGg ? 2u : 1u) + (a.noise ? S * 4u : 0u));
   bulk_load(z, a.z_a + static_cast<size_t>(ray) * s_a, s_a * 4u, bar);
   bulk_load(z + pl.zb_off, a.z_b + static_cast<size_t>(ray) * s_b, s_b * 4u, bar);
   if (a.noise) bulk_load(z + pl.noise_off, a.noise + static_cast<size_t>(ray) * S, S * 4u, bar);
   bulk_load(v, a.v_a + static_cast<size_t>(ray) * s_a * a.channels, s_a * rb, bar);
   bulk_load(v + s_a * rb, a.v_b + static_cast<size_t>(ray) * s_b * a.channels, s_b * rb, bar);
+  if (kGg) {
+    bulk_load(stage + pl.gg_off, gg_a + static_cast<size_t>(ray) * s_a * a.channels, s_a * rb, bar);
+    bulk_load(stage + pl.gg_off + s_a * rb, gg_b + static_cast<size_t>(ray) * s_b * a.channels,
+              s_b * rb, bar);
+  }
 }
 
 // The block: copy value rows [r0, r1) of ray `ray` (both halves) into `buf`
@@ -1098,20 +1112,50 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 // gg (as large), its depths, noise and cotangents, and writes a gradient as
 // large as its values and C + 2 floats: at B=4, R=4096, S=96+96, C+1=52, bf16
 // that is 1,001,062,400 B in all (the backward's 670 MB plus gg and the
-// cotangents' gradients), 298.8 us at 3.35 TB/s. The design is the simple one:
-// a block of kMaxSamples threads per ray (a grid-stride loop over rays), a
-// thread a sorted position for the scans, a warp a row for the dots (g_feat .
-// f_i and g_feat . gg_f_i, coalesced), a thread a channel for dM/dg_feat (a
-// second read of both slabs, from L2), flat coalesced writes of the rows, the
-// stable rank by counting over all S depths. It runs once per path-length
-// step; making it fast (staging, the forward's persistent plan) is later work.
+// cotangents' gradients), 298.8 us at 3.35 TB/s. The arithmetic (the
+// forward's rank and scans again, two dots and a channel sum a row) is of the
+// same order in instructions, so the design, the forward's and the
+// backward's plan extended to two slabs, keeps the bytes moving
+// asynchronously and the instructions and barriers few:
+//   1. Staged, asynchronous reads: one stage a block holds the ray's depths,
+//      noise, value slab and gg slab, filled by TMA bulk copies (make_plan and
+//      issue_ray with the gg slab). The grid is persistent, 4-warp blocks
+//      sized by occupancy (5 a SM at the training shape, the registers
+//      budgeted for them); the next ray's copies go out as soon as the
+//      gradient's bulk store has read the stage. Each slab is read from HBM
+//      once; g_feat and the scalars are prefetched a ray ahead.
+//   2. The dots g_feat . f_i and g_feat . gg_f_i: a thread a row, from the
+//      stage in the widest chunk that divides a row, both in one pass (row_dot2).
+//   3. The forward's rank (a vote; a sorted half ranks its samples by index
+//      and is binary-searched by the other) and its layout of kItems sorted
+//      positions a thread. The derivation's seven scans and sums run as two
+//      block passes, each a warp scan and one barrier: the prefixes of -x and
+//      v; then the suffixes of L w and U w + c L with the sums of w, c and
+//      c (z - [last_back] z_{S-1}), which give W, C_s, dM/dg_depth and
+//      dM/dg_wsum. Six block barriers a ray.
+//   4. dM/dg_feat = sum_i w'_i gg_f_i + c'_i f_i is the forward's vector
+//      channel sum over both staged slabs (a lane keeps fixed channels; the
+//      sums fold by shuffles, then across the warps in a fixed order). In the
+//      same pass each lane writes the gradient [c'_i g_feat, dM/dsigma_i] of
+//      the 16-byte vector it has just read over it: its columns are fixed,
+//      so no division, and 16-byte stores. One thread sends each half with a
+//      TMA bulk store.
+// Shapes the stage does not take (a half that is not a multiple of 16 bytes,
+// a pointer, gg and the outputs included, that is not 16-byte aligned, a row
+// below 16 bytes or a unit above 32 vectors, or a ray whose two slabs and
+// depths exceed kMaxDblStageBytes, e.g. S=256, C+1=256 fp32) run streamed, on
+// the first design below (a block of 256 threads a ray, the slabs read from
+// device memory), at a grid sized by occupancy. fp32 at the training shape
+// (80 KB of slabs) is staged, 2 blocks a SM.
 
-constexpr int kDbThreads = kMaxSamples;  // a thread a sorted position
+constexpr int kMaxDblStageBytes = 96 * 1024;  // a ray above this is streamed
+constexpr int kDblMinBlocks = 5;               // blocks per SM the registers are budgeted for
+constexpr int kDbThreads = kMaxSamples;        // streamed: a thread a sorted position
 constexpr int kDbWarps = kDbThreads / 32;
 
 template <typename T>
 struct DblArgs {
-  Args<T> f;             // the forward's inputs; its plan and outputs are unused
+  Args<T> f;             // the forward's inputs and the plan; its outputs are unused
   const float* g_feat;   // [n_rays, C]
   const float* g_depth;  // [n_rays]
   const float* g_wsum;   // [n_rays]
@@ -1124,8 +1168,408 @@ struct DblArgs {
   float* d_gwsum;        // [n_rays]
 };
 
-// Block-wide (kDbThreads) scans and sums; every thread calls them, and `red`
-// (kDbWarps floats) is free again when they return.
+// fp32 -> 16 bytes of values, the inverse of unpack.
+__device__ __forceinline__ uint4 pack(const float (&v)[8]) {  // 8 bf16
+  uint32_t w[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * q], v[2 * q + 1]);
+    memcpy(&w[q], &h, 4);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+__device__ __forceinline__ uint4 pack(const float (&v)[4]) {  // 4 fp32
+  return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]), __float_as_uint(v[2]),
+                    __float_as_uint(v[3]));
+}
+
+// g_feat . a and g_feat . b of two value rows of c1 values, read in W-byte
+// chunks (gf is 0 at the sigma column), each summed in column order: one
+// pass over g_feat for both (two row_dot calls measured ~6% slower).
+template <typename T, int W>
+__device__ __forceinline__ void row_dot2(const T* a, const T* b, const float* gf, int c1,
+                                         float& da, float& db) {
+  constexpr int kN = W / sizeof(T);
+  float x = 0.f, y = 0.f;
+  for (int c = 0; c < c1; c += kN) {
+    const auto ra = *reinterpret_cast<const typename Bits<W>::type*>(a + c);
+    const auto rb = *reinterpret_cast<const typename Bits<W>::type*>(b + c);
+    T ea[kN], eb[kN];
+    memcpy(ea, &ra, W);
+    memcpy(eb, &rb, W);
+#pragma unroll
+    for (int q = 0; q < kN; ++q) {
+      x = fmaf(gf[c + q], to_f32(ea[q]), x);
+      y = fmaf(gf[c + q], to_f32(eb[q]), y);
+    }
+  }
+  da = x;
+  db = y;
+}
+
+// Shared memory of the staged double backward: the mbarrier; the stage
+// (depths, noise, values, gg; the gradient rows overlay the values as they
+// are read); g_feat, 0 from column C on; the two passes' per-warp totals
+// (8 floats a warp) and the votes (an int a warp); then by input index
+// (S + 1: the vector pass may read one past) dM/dsigma, g_feat . f_i -> c',
+// g_feat . gg_f_i -> w'; the sorted depths, which the vector pass's per-warp
+// channel partials overlay; the input index of each sorted position (S bytes).
+__host__ __device__ __forceinline__ int dbl_partial_floats(const Plan& p, int S, int channels) {
+  const int part = kWarps * p.unit_rows * channels;
+  return part > S ? part : S;
+}
+int dbl_smem_bytes(const Plan& p, int S, int channels) {
+  const int floats =
+      round_up(channels, 4) + 9 * kWarps + 3 * (S + 1) + dbl_partial_floats(p, S, channels);
+  return kHeaderBytes + p.stride + 4 * floats + S;
+}
+
+template <typename T, bool kRelu>
+__global__ void __launch_bounds__(kThreads, kDblMinBlocks)
+    sort_integrate_double_backward_kernel(const __grid_constant__ DblArgs<T> a) {
+  constexpr int kEpv = 16 / sizeof(T);  // values per 16-byte vector
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Args<T>& f = a.f;
+  const Plan& pl = f.plan;
+  const int s_a = f.s_a, s_b = f.s_b, S = s_a + s_b;
+  const int c1 = f.channels, C = c1 - 1, C4 = (c1 + 3) & ~3;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  unsigned char* stage = smem + kHeaderBytes;
+  const float* zst = reinterpret_cast<const float*>(stage);  // depths, noise
+  T* vst = reinterpret_cast<T*>(stage + pl.vals_off);      // value rows, then gradient rows
+  const T* gst = reinterpret_cast<const T*>(stage + pl.gg_off);  // gg rows
+  float* gf = reinterpret_cast<float*>(stage + pl.stride);
+  float* red = gf + C4;  // per-warp totals: -x, v | L w, U w + c L, w, c, c z | sum(g_feat)
+  int* vote = reinterpret_cast<int*>(red + 8 * kWarps);
+  float* dsg = reinterpret_cast<float*>(vote + kWarps);  // dM/dsigma
+  float* cp = dsg + S + 1;                               // g_feat . f_i, then c'
+  float* wp = cp + S + 1;                                // g_feat . gg_f_i, then w'
+  float* zs = wp + S + 1;  // depth by sorted position, then the channel partials
+  float* part = zs;
+  uint8_t* src = reinterpret_cast<uint8_t*>(zs + dbl_partial_floats(pl, S, c1));
+
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int ni = (S + kThreads - 1) / kThreads;  // sorted positions per thread, contiguous
+  int W = 16;  // the dots read the widest chunk that divides a row
+  while ((c1 * static_cast<int>(sizeof(T))) % W) W >>= 1;
+
+  // The vector pass (the forward's): this lane's vector within a unit and
+  // the columns of its values. A warp holds gpw groups of V lanes; group g
+  // takes units g, g + G, ...
+  const int V = pl.unit_vecs;
+  const int gpw = 32 / V;
+  const int G = kWarps * gpw;
+  const int unit_elems = pl.unit_rows * c1;
+  const bool vlane = lane < gpw * V;
+  const int grp = warp * gpw + lane / V;
+  const int f0 = (lane % V) * kEpv;  // first element of this lane's vector in a unit
+  const int ro_lo = f0 / c1;
+  unsigned hi_mask = 0;  // elements of the vector that lie in row ro_lo + 1
+#pragma unroll
+  for (int e = 0; e < kEpv; ++e) hi_mask |= static_cast<unsigned>((f0 + e) / c1 - ro_lo) << e;
+  const int n_units = S / pl.unit_rows;  // each half is whole units
+
+  for (int c = C + t; c < C4; c += kThreads) gf[c] = 0.f;
+  if (t == 0) {  // the grid has at most one block per ray
+    mbar_init(bar);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    issue_ray<T, true>(f, blockIdx.x, stage, bar, a.gg_a, a.gg_b);
+  }
+  __syncthreads();
+
+  // The cotangents and |ray_d| of a ray, loaded one ray ahead.
+  float pf_gf[kChans], pf_gd, pf_gw, pf_norm;
+  auto prefetch = [&](int r) {
+#pragma unroll
+    for (int q = 0; q < kChans; ++q) {
+      const int c = t + kThreads * q;
+      pf_gf[q] = c < C ? a.g_feat[static_cast<size_t>(r) * C + c] : 0.f;
+    }
+    pf_gd = a.g_depth[r];
+    pf_gw = a.g_wsum[r];
+    pf_norm = f.ray_norm[r];
+  };
+  prefetch(blockIdx.x);
+
+  int it = 0;
+  for (int ray = blockIdx.x; ray < f.n_rays; ray += gridDim.x, ++it) {
+    const size_t rs = ray;
+    const float gd = pf_gd, gws = pf_gw, norm = pf_norm;
+    float gpart = 0.f;
+#pragma unroll
+    for (int q = 0; q < kChans; ++q) {
+      const int c = t + kThreads * q;
+      if (c < C) gf[c] = pf_gf[q];
+      gpart += pf_gf[q];
+    }
+    const int next = ray + gridDim.x;
+    if (next < f.n_rays) prefetch(next);
+    mbar_wait(bar, it & 1);
+
+    // 1. Input sample i = k * kThreads + t: its depth; whether each half is
+    // sorted (a vote), and sum(g_feat) (the white_back term), per warp.
+    float zi[kItems];
+    bool ok_a = true, ok_b = true;
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const int i = k * kThreads + t;
+      zi[k] = 0.f;
+      if (i < S) {
+        const bool in_a = i < s_a;
+        const int zo = in_a ? i : pl.zb_off + i - s_a;
+        zi[k] = zst[zo];
+        if (in_a && i + 1 < s_a) ok_a &= zi[k] <= zst[zo + 1];
+        if (!in_a && i + 1 < S) ok_b &= zi[k] <= zst[zo + 1];
+      }
+    }
+    ok_a = __all_sync(kFull, ok_a);
+    ok_b = __all_sync(kFull, ok_b);
+    gpart = warp_allsum(gpart);
+    if (lane == 0) {
+      vote[warp] = static_cast<int>(ok_a) | (static_cast<int>(ok_b) << 1);
+      red[7 * kWarps + warp] = gpart;
+    }
+    __syncthreads();  // g_feat, the votes
+    int votes = 3;
+    float gsum = 0.f;
+    for (int v = 0; v < kWarps; ++v) {
+      votes &= vote[v];
+      gsum += red[7 * kWarps + v];
+    }
+
+    // 2. The two dots of the thread's own rows, from the stage; the stable
+    // rank, the sorted depths and the input index of each position.
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const int i = k * kThreads + t;
+      if (i < S) {
+        const T* vr = vst + static_cast<size_t>(i) * c1;
+        const T* gr = gst + static_cast<size_t>(i) * c1;
+        if (W == 16) row_dot2<T, 16>(vr, gr, gf, c1, cp[i], wp[i]);
+        else if (W == 8) row_dot2<T, 8>(vr, gr, gf, c1, cp[i], wp[i]);
+        else if (W == 4) row_dot2<T, 4>(vr, gr, gf, c1, cp[i], wp[i]);
+        else row_dot2<T, sizeof(T)>(vr, gr, gf, c1, cp[i], wp[i]);
+      }
+    }
+    int rank[kItems];
+    rank_items(zst, s_a, votes & 1, zst + pl.zb_off, s_b, votes & 2, zi, rank);
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const int i = k * kThreads + t;
+      if (i < S) {
+        zs[rank[k]] = zi[k];
+        src[rank[k]] = static_cast<uint8_t>(i);
+      }
+    }
+    __syncthreads();
+
+    // 3. Position k = t * ni + m: the forward, L, U, v; the thread's exclusive
+    // prefixes of -x and v, then the warp's (pass 1).
+    const int il = src[S - 1];
+    const float z_last = zs[S - 1];
+    const float a_last = cp[il] + gd * z_last + gws;
+    const float shift = (f.last_back ? a_last : 0.f) + (f.white_back ? gsum : 0.f);
+    const float u_last = f.last_back ? wp[il] : 0.f;
+    const float z_shift = f.last_back ? z_last : 0.f;
+    float delta[kItems], ex[kItems], d1[kItems], d2[kItems], zk[kItems], L[kItems], U[kItems];
+    float v[kItems], gr[kItems], xp[kItems], vp[kItems];
+    int ii[kItems];
+    float run_x = 0.f, run_v = 0.f;
+#pragma unroll
+    for (int m = 0; m < kItems; ++m) {
+      const int k = t * ni + m;
+      delta[m] = d1[m] = d2[m] = zk[m] = L[m] = U[m] = v[m] = gr[m] = 0.f;
+      ex[m] = 1.f;
+      ii[m] = 0;
+      xp[m] = run_x;  // exclusive within the thread, for now
+      vp[m] = run_v;
+      if (m < ni && k < S) {
+        const int i = src[k];
+        ii[m] = i;
+        float s = to_f32(vst[static_cast<size_t>(i) * c1 + C]);
+        if (f.noise) s += zst[pl.noise_off + i];
+        if (kRelu) {
+          d1[m] = s > 0.f ? 1.f : 0.f;
+        } else {
+          d1[m] = 1.f / (1.f + expf(-s));
+          d2[m] = d1[m] * (1.f - d1[m]);
+        }
+        zk[m] = zs[k];
+        delta[m] = (k == S - 1 ? kLastDelta : zs[k + 1] - zk[m]) * norm;
+        const float x = delta[m] * clamp_density<kRelu>(s);
+        ex[m] = expf(-x);
+        gr[m] = to_f32(gst[static_cast<size_t>(i) * c1 + C]);
+        L[m] = cp[i] + gd * zk[m] + gws - shift;
+        U[m] = wp[i] - u_last;
+        v[m] = gr[m] * delta[m] * d1[m];
+        run_x -= x;
+        run_v += v[m];
+      }
+    }
+    const float in_x = warp_exclusive_scan(run_x);
+    const float in_v = warp_exclusive_scan(run_v);
+    if (lane == 31) {
+      red[warp] = in_x + run_x;
+      red[kWarps + warp] = in_v + run_v;
+    }
+    __syncthreads();
+
+    // 4. T, T', w, P, c; the exclusive suffixes of L w and U w + c L and the
+    // sums of w, c and c (z - z_shift) (pass 2).
+    float px = in_x, pv = in_v;
+    for (int q = 0; q < warp; ++q) {
+      px += red[q];
+      pv += red[kWarps + q];
+    }
+    float tr1[kItems], w[kItems], P[kItems], c[kItems], suf_lw[kItems], suf_x[kItems];
+    float sw = 0.f, sc = 0.f, scz = 0.f;
+#pragma unroll
+    for (int m = 0; m < kItems; ++m) {
+      const float tr = expf(px + xp[m]);  // T_k
+      tr1[m] = tr * ex[m];                // T'_k
+      w[m] = (m < ni && t * ni + m < S) ? (1.f - ex[m]) * tr : 0.f;
+      P[m] = pv + vp[m];
+      c[m] = v[m] * tr1[m] - w[m] * P[m];
+      sw += w[m];
+      sc += c[m];
+      scz += c[m] * (zk[m] - z_shift);
+    }
+    float acc_lw = 0.f, acc_x = 0.f;
+#pragma unroll
+    for (int m = kItems - 1; m >= 0; --m) {
+      suf_lw[m] = acc_lw;
+      suf_x[m] = acc_x;
+      acc_lw += L[m] * w[m];
+      acc_x += U[m] * w[m] + c[m] * L[m];
+    }
+    float tot_lw, tot_x;
+    float after_lw = warp_exclusive_suffix(acc_lw, tot_lw);
+    float after_x = warp_exclusive_suffix(acc_x, tot_x);
+    sw = warp_allsum(sw);
+    sc = warp_allsum(sc);
+    scz = warp_allsum(scz);
+    if (lane == 0) {
+      red[2 * kWarps + warp] = tot_lw;
+      red[3 * kWarps + warp] = tot_x;
+      red[4 * kWarps + warp] = sw;
+      red[5 * kWarps + warp] = sc;
+      red[6 * kWarps + warp] = scz;
+    }
+    __syncthreads();
+    float w_sum = 0.f, c_sum = 0.f, cz_sum = 0.f;
+    for (int q = 0; q < kWarps; ++q) {
+      if (q > warp) {
+        after_lw += red[2 * kWarps + q];
+        after_x += red[3 * kWarps + q];
+      }
+      w_sum += red[4 * kWarps + q];
+      c_sum += red[5 * kWarps + q];
+      cz_sum += red[6 * kWarps + q];
+    }
+
+    // 5. By input index: w', c', dM/dsigma; dM/dg_depth = sum c'_k z_k and
+    // dM/dg_wsum = sum c'_k (0 with last_back: c' moves C_s off the last).
+#pragma unroll
+    for (int m = 0; m < kItems; ++m) {
+      const int k = t * ni + m;
+      if (m < ni && k < S) {
+        const bool last = k == S - 1;  // its suffixes are empty
+        const float D = L[m] * tr1[m] - (last ? 0.f : after_lw + suf_lw[m]);
+        const float dx = U[m] * tr1[m] - L[m] * tr1[m] * (P[m] + v[m]) -
+                         (last ? 0.f : after_x + suf_x[m]);
+        const bool lb = f.last_back && last;
+        const int i = ii[m];
+        wp[i] = lb ? w[m] + (1.f - w_sum) : w[m];
+        cp[i] = lb ? c[m] - c_sum : c[m];
+        dsg[i] = dx * delta[m] * d1[m] + D * gr[m] * delta[m] * d2[m];
+      }
+    }
+    if (t == 0) {
+      a.d_gdepth[ray] = cz_sum;
+      a.d_gwsum[ray] = f.last_back ? 0.f : c_sum;
+    }
+    __syncthreads();
+
+    // 6. dM/dg_feat and the gradient rows [c'_i g_feat, dM/dsigma_i]: each
+    // lane reads its vector of both slabs, adds w' gg + c' f to its channels
+    // and writes the gradient of the vector over the values.
+    float acc[kEpv];
+#pragma unroll
+    for (int e = 0; e < kEpv; ++e) acc[e] = 0.f;
+    if (vlane) {
+      float gfv[kEpv];  // g_feat at this lane's columns, 0 at the sigma column
+      unsigned sig_mask = 0;
+#pragma unroll
+      for (int e = 0; e < kEpv; ++e) {
+        const int col = f0 + e - (ro_lo + static_cast<int>((hi_mask >> e) & 1u)) * c1;
+        gfv[e] = gf[col];
+        sig_mask |= static_cast<unsigned>(col == C) << e;
+      }
+      unsigned char* vbase = stage + pl.vals_off + f0 * sizeof(T);
+      const unsigned char* gbase = stage + pl.gg_off + f0 * sizeof(T);
+#pragma unroll 2
+      for (int u = grp; u < n_units; u += G) {
+        const int row = u * pl.unit_rows + ro_lo;
+        const float c_lo = cp[row], c_hi = cp[row + 1], w_lo = wp[row], w_hi = wp[row + 1];
+        const float s_lo = dsg[row], s_hi = dsg[row + 1];
+        const size_t off = static_cast<size_t>(u) * unit_elems * sizeof(T);
+        uint4* vv = reinterpret_cast<uint4*>(vbase + off);
+        float x[kEpv], g[kEpv], o[kEpv];
+        unpack(*vv, x);
+        unpack(*reinterpret_cast<const uint4*>(gbase + off), g);
+#pragma unroll
+        for (int e = 0; e < kEpv; ++e) {
+          const bool hi = (hi_mask >> e) & 1u;
+          const float ce = hi ? c_hi : c_lo;
+          acc[e] = fmaf(hi ? w_hi : w_lo, g[e], fmaf(ce, x[e], acc[e]));
+          o[e] = (sig_mask >> e) & 1u ? (hi ? s_hi : s_lo) : ce * gfv[e];
+        }
+        *vv = pack(o);
+      }
+    }
+    // Fold the warp's groups onto its first V lanes (same vector position);
+    // the partials overlay the sorted depths, read by now.
+    float own[kEpv];
+#pragma unroll
+    for (int e = 0; e < kEpv; ++e) own[e] = acc[e];
+    for (int g = 1; g < gpw; ++g) {
+#pragma unroll
+      for (int e = 0; e < kEpv; ++e) acc[e] += __shfl_down_sync(kFull, own[e], g * V);
+    }
+    if (lane < V) {
+#pragma unroll
+      for (int e = 0; e < kEpv; ++e) part[warp * unit_elems + f0 + e] = acc[e];
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // the rows, to the bulk store
+    __syncthreads();
+
+    // 7. One thread sends each half's gradient slab and, once the stores have
+    // read the stage, refills it with the next ray; the partials fold across
+    // the warps in a fixed order.
+    if (t == 0) {
+      const uint32_t rb = c1 * sizeof(T);
+      bulk_store(a.d_a + rs * s_a * c1, vst, s_a * rb);
+      bulk_store(a.d_b + rs * s_b * c1, vst + static_cast<size_t>(s_a) * c1, s_b * rb);
+      bulk_commit();
+    }
+    const float white = f.white_back ? c_sum : 0.f;
+    for (int col = t; col < C; col += kThreads) {
+      float sum = 0.f;
+      for (int q = 0; q < kWarps; ++q)
+        for (int ro = 0; ro < pl.unit_rows; ++ro) sum += part[q * unit_elems + ro * c1 + col];
+      a.d_gfeat[rs * C + col] = sum - white;
+    }
+    if (t == 0 && next < f.n_rays) {
+      bulk_wait_read();
+      issue_ray<T, true>(f, next, stage, bar, a.gg_a, a.gg_b);
+    }
+  }
+  if (t == 0) bulk_wait();  // the last slabs are written before the block ends
+}
+
+// The streamed plan: the first design. Block-wide (kDbThreads) scans and
+// sums; every thread calls them, and `red` (kDbWarps floats) is free again
+// when they return.
 __device__ __forceinline__ float db_excl_prefix(float v, float* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float incl = v;
@@ -1171,14 +1615,14 @@ __device__ __forceinline__ float db_sum(float v, float* red) {
   return s;
 }
 
-// Shared memory of the double backward, in floats: by input index the depths,
+// Shared memory of the streamed plan, in floats: by input index the depths,
 // dots, sigma + noise, gg's sigma column, w', c', dM/ds; the sorted depths;
 // g_feat; the block sums; then the input index of each sorted position (ints).
-int dbl_smem_bytes(int S, int channels) { return 4 * (10 * S + channels + kDbWarps); }
+int dbl_streamed_smem_bytes(int S, int channels) { return 4 * (10 * S + channels + kDbWarps); }
 
 template <typename T, bool kRelu>
 __global__ void __launch_bounds__(kDbThreads)
-    sort_integrate_double_backward_kernel(const __grid_constant__ DblArgs<T> a) {
+    sort_integrate_double_backward_streamed_kernel(const __grid_constant__ DblArgs<T> a) {
   extern __shared__ __align__(16) float dsm[];
   const Args<T>& f = a.f;
   const int s_a = f.s_a, s_b = f.s_b, S = s_a + s_b;
@@ -1321,16 +1765,17 @@ __global__ void __launch_bounds__(kDbThreads)
   }
 }
 
-// Blocks of a persistent launch: as many as fit on the card at once, at most
-// one a ray. `set_smem` and `blocks_per_sm` keep the kernel's attribute and
-// occupancy for the shared-memory size of its last launch.
-int persistent_grid(const void* kernel, int smem, int n_rays, int device, int& set_smem,
-                    int& blocks_per_sm, int& grid) {
+// Blocks of a persistent launch of `threads` a block: as many as fit on the
+// card at once, at most one a ray. `set_smem` and `blocks_per_sm` keep the
+// kernel's attribute and occupancy for the shared-memory size of its last
+// launch.
+int persistent_grid(const void* kernel, int threads, int smem, int n_rays, int device,
+                    int& set_smem, int& blocks_per_sm, int& grid) {
   cudaError_t err;
   if (smem != set_smem) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks_per_sm, kernel, kThreads, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks_per_sm, kernel, threads, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     set_smem = smem;
   }
@@ -1348,8 +1793,8 @@ int launch(int device, const Args<T>& a, cudaStream_t st) {
   auto* kernel = sort_integrate_kernel<T, kRelu>;
   const int smem = smem_bytes(a.plan, a.s_a + a.s_b);
   int grid = 0;
-  const int err = persistent_grid(reinterpret_cast<const void*>(kernel), smem, a.n_rays, device,
-                                  set_smem, blocks_per_sm, grid);
+  const int err = persistent_grid(reinterpret_cast<const void*>(kernel), kThreads, smem, a.n_rays,
+                                  device, set_smem, blocks_per_sm, grid);
   if (err) return err;
   kernel<<<grid, kThreads, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
@@ -1361,8 +1806,8 @@ int launch_backward(int device, const BwdArgs<T>& a, cudaStream_t st) {
   auto* kernel = sort_integrate_backward_kernel<T, kRelu>;
   const int smem = bwd_smem_bytes(a.f.plan, a.f.s_a + a.f.s_b, a.f.channels);
   int grid = 0;
-  const int err = persistent_grid(reinterpret_cast<const void*>(kernel), smem, a.f.n_rays, device,
-                                  set_smem, blocks_per_sm, grid);
+  const int err = persistent_grid(reinterpret_cast<const void*>(kernel), kThreads, smem,
+                                  a.f.n_rays, device, set_smem, blocks_per_sm, grid);
   if (err) return err;
   kernel<<<grid, kThreads, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
@@ -1370,22 +1815,37 @@ int launch_backward(int device, const BwdArgs<T>& a, cudaStream_t st) {
 
 template <typename T, bool kRelu>
 int launch_double_backward(int device, const DblArgs<T>& a, cudaStream_t st) {
-  auto* kernel = sort_integrate_double_backward_kernel<T, kRelu>;
-  int sms = 0;
-  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int cap = 8 * sms;  // 2048 threads a SM
-  const int grid = a.f.n_rays < cap ? a.f.n_rays : cap;
-  kernel<<<grid, kDbThreads, dbl_smem_bytes(a.f.s_a + a.f.s_b, a.f.channels), st>>>(a);
+  const int S = a.f.s_a + a.f.s_b;
+  int grid = 0, err;
+  if (a.f.plan.staged) {
+    static int set_smem = -1, blocks_per_sm = 0;  // per instantiation
+    auto* kernel = sort_integrate_double_backward_kernel<T, kRelu>;
+    const int smem = dbl_smem_bytes(a.f.plan, S, a.f.channels);
+    err = persistent_grid(reinterpret_cast<const void*>(kernel), kThreads, smem, a.f.n_rays,
+                          device, set_smem, blocks_per_sm, grid);
+    if (err) return err;
+    kernel<<<grid, kThreads, smem, st>>>(a);
+  } else {
+    static int set_smem = -1, blocks_per_sm = 0;
+    auto* kernel = sort_integrate_double_backward_streamed_kernel<T, kRelu>;
+    const int smem = dbl_streamed_smem_bytes(S, a.f.channels);
+    err = persistent_grid(reinterpret_cast<const void*>(kernel), kDbThreads, smem, a.f.n_rays,
+                          device, set_smem, blocks_per_sm, grid);
+    if (err) return err;
+    kernel<<<grid, kDbThreads, smem, st>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// The forward's inputs and launch plan. `out_a` and `out_b` are outputs the
-// plan also needs 16-byte aligned (the backward's gradients), or null.
+// The forward's inputs and launch plan. `gg_a` and `gg_b` are the double
+// backward's second slabs, staged beside the values, or null; `out_a` and
+// `out_b` are outputs the plan also needs 16-byte aligned (the gradients), or
+// null.
 template <typename T>
 Args<T> make_args(const void* z_a, const void* v_a, int s_a, const void* z_b, const void* v_b,
                   int s_b, const void* ray_norm, const void* noise, int n_rays, int channels,
-                  int last_back, int white_back, const void* out_a, const void* out_b) {
+                  int last_back, int white_back, const void* gg_a, const void* gg_b,
+                  const void* out_a, const void* out_b) {
   Args<T> a{};
   a.z_a = static_cast<const float*>(z_a);
   a.v_a = static_cast<const T*>(v_a);
@@ -1399,10 +1859,12 @@ Args<T> make_args(const void* z_a, const void* v_a, int s_a, const void* z_b, co
   a.channels = channels;
   a.last_back = last_back;
   a.white_back = white_back;
-  const void* copied[] = {z_a, v_a, z_b, v_b, noise, out_a, out_b};  // null is aligned
+  const void* copied[] = {z_a, v_a, z_b, v_b, noise, gg_a, gg_b, out_a, out_b};  // null is aligned
   bool aligned = true;  // the bulk copies and the vector writes need 16-byte-aligned addresses
   for (const void* p : copied) aligned &= (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
-  a.plan = make_plan(s_a, s_b, channels, sizeof(T), noise != nullptr, aligned);
+  const bool gg = gg_a != nullptr;
+  a.plan = make_plan(s_a, s_b, channels, sizeof(T), noise != nullptr, gg, aligned,
+                     gg ? kMaxDblStageBytes : kMaxStageBytes);
   return a;
 }
 
@@ -1412,7 +1874,7 @@ int dispatch(int device, const void* z_a, const void* v_a, int s_a, const void* 
              int channels, int relu, int last_back, int white_back, void* feat, void* depth,
              void* wsum, cudaStream_t st) {
   Args<T> a = make_args<T>(z_a, v_a, s_a, z_b, v_b, s_b, ray_norm, noise, n_rays, channels,
-                           last_back, white_back, nullptr, nullptr);
+                           last_back, white_back, nullptr, nullptr, nullptr, nullptr);
   a.feat = static_cast<float*>(feat);
   a.depth = static_cast<float*>(depth);
   a.wsum = static_cast<float*>(wsum);
@@ -1427,7 +1889,7 @@ int dispatch_backward(int device, const void* z_a, const void* v_a, int s_a, con
                       void* gv_b, cudaStream_t st) {
   BwdArgs<T> a;
   a.f = make_args<T>(z_a, v_a, s_a, z_b, v_b, s_b, ray_norm, noise, n_rays, channels, last_back,
-                     white_back, gv_a, gv_b);
+                     white_back, nullptr, nullptr, gv_a, gv_b);
   a.g_feat = static_cast<const float*>(g_feat);
   a.g_depth = static_cast<const float*>(g_depth);
   a.g_wsum = static_cast<const float*>(g_wsum);
@@ -1446,7 +1908,7 @@ int dispatch_double_backward(int device, const void* z_a, const void* v_a, int s
                              cudaStream_t st) {
   DblArgs<T> a;
   a.f = make_args<T>(z_a, v_a, s_a, z_b, v_b, s_b, ray_norm, noise, n_rays, channels, last_back,
-                     white_back, nullptr, nullptr);
+                     white_back, gg_a, gg_b, d_a, d_b);
   a.g_feat = static_cast<const float*>(g_feat);
   a.g_depth = static_cast<const float*>(g_depth);
   a.g_wsum = static_cast<const float*>(g_wsum);
@@ -1520,4 +1982,18 @@ extern "C" int ide3d_sort_integrate_double_backward(
   return dispatch_double_backward<float>(
       device, z_a, v_a, s_a, z_b, v_b, s_b, ray_norm, noise, n_rays, channels, relu, last_back,
       white_back, g_feat, g_depth, g_wsum, gg_a, gg_b, d_a, d_b, d_gfeat, d_gdepth, d_gwsum, st);
+}
+
+// The double backward's launch plan for these shapes and pointers (the
+// outputs taken as 16-byte aligned, as the wrapper's allocations are): 1
+// staged, 0 streamed.
+extern "C" int ide3d_sort_integrate_double_backward_plan(
+    const void* z_a, const void* v_a, int s_a, const void* z_b, const void* v_b, int s_b,
+    const void* noise, int channels, int vals_bf16, const void* gg_a, const void* gg_b) {
+  const Plan p = vals_bf16
+      ? make_args<__nv_bfloat16>(z_a, v_a, s_a, z_b, v_b, s_b, nullptr, noise, 0, channels, 0, 0,
+                                 gg_a, gg_b, nullptr, nullptr).plan
+      : make_args<float>(z_a, v_a, s_a, z_b, v_b, s_b, nullptr, noise, 0, channels, 0, 0, gg_a,
+                         gg_b, nullptr, nullptr).plan;
+  return p.staged;
 }

@@ -342,6 +342,31 @@ def sort_integrate_double_backward(
 
 sort_integrate_double_backward.launches = 0  # kernel launches since the last reset
 
+DOUBLE_BACKWARD_PLANS = ("streamed", "staged")  # by the C++'s plan code
+
+
+@functools.cache
+def _plan_fn():
+    fn = _build.load("ray_march").ide3d_sort_integrate_double_backward_plan
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, i, p, p, i, p, i, i, p, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def double_backward_plan(z_a, vals_a, z_b, vals_b, ray_norm, g_feat, g_depth, g_wsum, gg_a, gg_b,
+                         noise=None, **options) -> str:
+    """The launch plan that `sort_integrate_double_backward` takes for these
+    CUDA arguments (the same ones), as the kernel's C++ makes it from the
+    shapes and the pointers' alignment: "staged" (TMA-staged rays) or
+    "streamed" (the slabs read from device memory). Launches nothing; builds
+    the kernel library at first use."""
+    code = _plan_fn()(
+        z_a.data_ptr(), vals_a.data_ptr(), z_a.shape[2], z_b.data_ptr(), vals_b.data_ptr(),
+        z_b.shape[2], noise.data_ptr() if noise is not None else None, vals_a.shape[-1],
+        int(vals_a.dtype == torch.bfloat16), gg_a.data_ptr(), gg_b.data_ptr())
+    return DOUBLE_BACKWARD_PLANS[code]
+
 
 class _SortIntegrateBackwardFn(torch.autograd.Function):
     """K1's backward as a differentiable function of the values and the

@@ -79,17 +79,19 @@ def test_k1_kernel_matches_plain_on_card(shape, opts):
         np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), atol=1e-4, rtol=1e-4)
 
 
-def _k1_backward_case(shape, opts, sorted_halves, R=2048):
+def _k1_backward_case(shape, opts, sorted_halves, R=2048, ties=True):
     """Inputs of one backward case: depths on a 1/8 grid (ties within and
-    across the halves), densities that keep every alpha below 1 - 1e-6, B=2
-    and R rays per image, so that the persistent blocks walk over several
-    rays each; returns (args, cotangents, options)."""
+    across the halves; continuous with ties=False), densities that keep every
+    alpha below 1 - 1e-6, B=2 and R rays per image, so that the persistent
+    blocks walk over several rays each; returns (args, cotangents, options)."""
     (sa, sb, c1, dtype, misaligned), opts = shape, dict(opts)
     rng = np.random.RandomState(sa + 3 * sb + c1 + R)
     B = 2
     args = []
     for s in (sa, sb):
-        z = np.round((rng.rand(B, R, s, 1) * 1.05 + 2.25) * 8).astype(np.float32) / 8
+        z = (rng.rand(B, R, s, 1) * 1.05 + 2.25).astype(np.float32)
+        if ties:
+            z = np.round(z * 8) / 8
         if sorted_halves:
             z = np.sort(z, axis=2)
         v = rng.randn(B, R, s, c1).astype(np.float32)
@@ -167,31 +169,25 @@ def test_k1_backward_back_to_back_on_card():
         _check_backward(got, args, cot, opts)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape,opts", [
-    ((96, 96, 52, "bfloat16", False), dict()),  # the training render's
-    ((96, 96, 52, "float32", False), dict(noise=True)),
-    ((8, 12, 4, "float32", False), dict(last_back=True, clamp_mode="relu")),
-    ((5, 130, 4, "float32", False), dict(white_back=True)),  # S = 135, odd halves
-    ((1, 1, 2, "float32", False), dict(last_back=True)),  # 1-sample halves, one channel
-    ((200, 56, 256, "float32", False),  # S = 256, C + 1 = 256
-     dict(clamp_mode="relu", last_back=True, white_back=True, noise=True)),
-])
-@pytest.mark.parametrize("sorted_halves", [False, True])
-def test_k1_double_backward_matches_plain_on_card(shape, opts, sorted_halves):
-    """The CUDA double backward against autograd (create_graph) through the
-    plain version: max abs err <= 1e-4 x max|grad| in fp32, 1e-2 x in bf16, of
-    the value gradients and of the cotangent gradients, each group against
-    its own max."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    args, cot, opts = _k1_backward_case(shape, opts, sorted_halves,
-                                        R=512 if shape[2] == 256 else 1024)
+def _k1_double_backward_case(shape, opts, sorted_halves, R):
+    """A backward case (continuous depths with opts["ties"] False), and the
+    cotangents gg of the backward's two gradients (gg_a misaligned with
+    opts["misaligned_gg"]); returns (args, cotangents, gg, options)."""
+    opts = dict(opts)
+    misaligned_gg, ties = opts.pop("misaligned_gg", False), opts.pop("ties", True)
+    args, cot, opts = _k1_backward_case(shape, opts, sorted_halves, R=R, ties=ties)
     rng = np.random.RandomState(7)
     gg = [t(rng.randn(*v.shape).astype(np.float32)).to("cuda", v.dtype) for v in (args[1], args[3])]
-    before = ray_march.sort_integrate_double_backward.launches
-    got = ray_march.sort_integrate_double_backward(*args, *cot, *gg, **opts)
-    assert ray_march.sort_integrate_double_backward.launches == before + 1
+    if misaligned_gg:
+        gg[0] = _misaligned(gg[0])
+        assert gg[0].data_ptr() % 16 == 4 and gg[0].is_contiguous()
+    return args, cot, gg, opts
+
+
+def _check_double_backward(got, args, cot, gg, opts):
+    """max abs err <= 1e-4 x max|grad| in fp32, 1e-2 x in bf16, of the value
+    gradients and of the cotangent gradients, each group against its own
+    max, against autograd (create_graph) through the plain version."""
     ref = ray_march.sort_integrate_double_backward_plain(*args, *cot, *gg, **opts)
     tol = 1e-4 if args[1].dtype == torch.float32 else 1e-2
     for group in ((got[:2], ref[:2]), (got[2:], ref[2:])):
@@ -200,6 +196,73 @@ def test_k1_double_backward_matches_plain_on_card(shape, opts, sorted_halves):
             assert g.dtype == r.dtype and g.shape == r.shape
             assert torch.isfinite(g.float()).all()
             assert float((g.float() - r.float()).abs().max()) <= tol * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,opts,plan", [
+    # (Sa, Sb, C+1, vals dtype, misaligned vals_a): each launch plan of the double backward
+    ((96, 96, 52, "bfloat16", False), dict(), "staged"),  # the training render's, 13-vector units
+    ((96, 96, 52, "float32", False), dict(noise=True), "staged"),  # 80 KB of slabs, 2 blocks a SM
+    ((96, 96, 52, "float32", False),  # continuous depths: every delta > 0
+     dict(last_back=True, white_back=True, ties=False), "staged"),
+    ((8, 8, 9, "bfloat16", False), dict(clamp_mode="relu"), "staged"),  # 8 rows = 9 vectors
+    ((8, 12, 4, "float32", False), dict(last_back=True, clamp_mode="relu"), "staged"),  # 1 vector
+    ((16, 16, 256, "bfloat16", False), dict(white_back=True), "staged"),  # 1 row = 32 vectors
+    ((8, 8, 2, "float32", False), dict(noise=True), "streamed"),  # rows below 16 bytes
+    ((8, 8, 255, "bfloat16", False), dict(last_back=True), "streamed"),  # 255-vector units
+    ((5, 130, 4, "float32", False), dict(white_back=True), "streamed"),  # a 20-byte half
+    ((1, 1, 2, "float32", False), dict(last_back=True), "streamed"),  # 1-sample halves, one channel
+    ((200, 56, 256, "float32", False),  # S = 256, C + 1 = 256: 512 KB of slabs a ray
+     dict(clamp_mode="relu", last_back=True, white_back=True, noise=True), "streamed"),
+    ((96, 96, 52, "bfloat16", True), dict(noise=True), "streamed"),  # a misaligned vals_a
+    ((96, 96, 52, "bfloat16", False), dict(misaligned_gg=True), "streamed"),  # a misaligned gg_a
+])
+@pytest.mark.parametrize("sorted_halves", [False, True])
+def test_k1_double_backward_matches_plain_on_card(shape, opts, plan, sorted_halves):
+    """The CUDA double backward against autograd (create_graph) through the
+    plain version, for each launch plan the kernel makes (read back from the
+    C++): max abs err <= 1e-4 x max|grad| in fp32, 1e-2 x in bf16, of the
+    value gradients and of the cotangent gradients, each group against its
+    own max."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    args, cot, gg, opts = _k1_double_backward_case(shape, opts, sorted_halves,
+                                                   R=512 if shape[2] >= 255 else 1024)
+    assert ray_march.double_backward_plan(*args, *cot, *gg, **opts) == plan
+    before = ray_march.sort_integrate_double_backward.launches
+    got = ray_march.sort_integrate_double_backward(*args, *cot, *gg, **opts)
+    assert ray_march.sort_integrate_double_backward.launches == before + 1
+    _check_double_backward(got, args, cot, gg, opts)
+
+
+@pytest.mark.cuda
+def test_k1_double_backward_back_to_back_on_card():
+    """Double backward calls queued on one stream with no synchronisation
+    between them, on different inputs, options and plans (so different
+    kernels and shared-memory sizes), each right: no stage is refilled before
+    its bulk store has read it, and no barrier or launch attribute is reused
+    stale."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cases = [_k1_double_backward_case(shape, opts, sorted_halves, R)
+             for shape, opts, sorted_halves, R in (
+        ((96, 96, 52, "bfloat16", False), dict(), True, 4096),
+        ((96, 96, 52, "bfloat16", False), dict(noise=True, last_back=True), False, 4095),
+        ((8, 8, 9, "bfloat16", False), dict(clamp_mode="relu"), False, 2048),
+        ((96, 96, 52, "float32", False), dict(white_back=True, ties=False), False, 2048),
+        ((96, 96, 52, "bfloat16", False), dict(misaligned_gg=True), False, 1024),
+        ((8, 8, 2, "float32", False), dict(noise=True), True, 2048),
+        ((96, 96, 52, "bfloat16", False), dict(ties=False), False, 77),
+    )]
+    plans = {ray_march.double_backward_plan(*args, *cot, *gg, **opts)
+             for args, cot, gg, opts in cases}
+    assert plans == {"staged", "streamed"}
+    torch.cuda.synchronize()
+    outs = [ray_march.sort_integrate_double_backward(*args, *cot, *gg, **opts)
+            for args, cot, gg, opts in cases]
+    torch.cuda.synchronize()
+    for got, (args, cot, gg, opts) in zip(outs, cases):
+        _check_double_backward(got, args, cot, gg, opts)
 
 
 @pytest.mark.cuda

@@ -1,6 +1,7 @@
-"""Times K1 (`sort_integrate`), or its backward, of one checkout of the port.
+"""Times K1 (`sort_integrate`), its backward or its double backward, of one
+checkout of the port.
 
-    python3 tools/time_k1.py [--tree DIR] [--backward]
+    python3 tools/time_k1.py [--tree DIR] [--backward | --double-backward]
 
 Imports `ide3d_tpu_torch` from DIR (default: the checkout this script is in),
 so that two commits' kernels are timed on the same card, one process each:
@@ -18,6 +19,17 @@ g_feat, g_depth, g_wsum)` at the training render's layout (bf16, B=4,
 R=4096, S=96+96, C+1=52, coarse half sorted, fine half unsorted), held
 against autograd through the plain version (max abs err <= 1e-2 x max|grad|),
 then the forward and the pair forward + backward at the same inputs.
+
+--double-backward: `sort_integrate_double_backward(..., gg_a, gg_b)` at the
+same layout, held against autograd (create_graph) through the plain version
+(max abs err <= 1e-2 x max|grad|, value and cotangent gradients each against
+their own max), beside its byte bound and the plain version's event time;
+where the checkout has `double_backward_plan`, also the same inputs with
+gg_a misaligned (its streamed plan) and each timing's plan. It first prints
+the build line of chip_smoke.py (each kernel's registers and spills from
+`nvcc -Xptxas -v`; "(cached)" when the checkout's library was already
+built). For an A/B, run it for this tree and another in turns, one process
+each, in one GPU-tool call (other, this, this, other).
 
 Each case prints, with chip_smoke.py's timers:
   graph_ms  device time per call, from a CUDA graph of 20 calls over two input sets
@@ -110,17 +122,60 @@ def time_backward(smoke, tree: Path, smi: str) -> dict:
     return result
 
 
+def time_double_backward(smoke, tree: Path, smi: str) -> dict:
+    from ide3d_tpu_torch.ops import ray_march
+
+    gen = torch.Generator().manual_seed(13)
+    sets = [(a, c, [torch.randn(v.shape, generator=gen).to("cuda", v.dtype) for v in (a[1], a[3])])
+            for a, c in smoke.training_k1_sets(gen)]
+    variants = {"": sets}
+    if hasattr(ray_march, "double_backward_plan"):  # the first design has one plan
+        variants["misaligned gg_a "] = [(a, c, [smoke.misaligned_copy(g[0]), g[1]])
+                                        for a, c, g in sets]
+    shape = "B=4 bf16 R=4096 S=96+96 C=51, coarse sorted, fine unsorted"
+    nbytes = smoke.k1_double_backward_bytes(*sets[0])
+    result = {}
+    for label, vs in variants.items():
+        args = (*vs[0][0], *vs[0][1], *vs[0][2])
+        ref = ray_march.sort_integrate_double_backward_plain(*args)
+        err = smoke.group_err(ray_march.sort_integrate_double_backward(*args), ref)
+        del ref
+        if err > 1e-2:
+            raise RuntimeError(f"double backward {label}: max abs err / max|grad| vs plain {err} "
+                               f"> 1e-2")
+        plan = (ray_march.double_backward_plan(*args) if hasattr(ray_march, "double_backward_plan")
+                else "the only")
+        r = _timed(smoke, [lambda s=s: ray_march.sort_integrate_double_backward(*s[0], *s[1], *s[2])
+                           for s in vs], nbytes)
+        r.update(max_abs_err=err, plan=plan)
+        if not label:
+            r["plain_ms"] = smoke.event_median_ms(
+                lambda: ray_march.sort_integrate_double_backward_plain(*args), runs=5)
+        result[f"double_backward{'_' + label.split()[0] if label else ''}"] = r
+        _line(f"K1 double backward, {label}{plan} plan", tree, shape, smi, r)
+    print(f"K1 double backward plain (autograd with create_graph, event ms) "
+          f"{result['double_backward']['plain_ms']:.4f}", flush=True)
+    return result
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", type=Path, default=ROOT, help="root of the checkout to time")
-    ap.add_argument("--backward", action="store_true",
-                    help="time the backward at the training layout (B=4)")
+    which = ap.add_mutually_exclusive_group()
+    which.add_argument("--backward", action="store_true",
+                       help="time the backward at the training layout (B=4)")
+    which.add_argument("--double-backward", action="store_true",
+                       help="time the double backward at the training layout (B=4)")
     args = ap.parse_args()
     sys.path.insert(0, str(args.tree.resolve()))
     smoke = _smoke_helpers()
     smi = smoke.phase_device().splitlines()[0]
     result = {"tree": str(args.tree), "device": smi}
-    result.update((time_backward if args.backward else time_forward)(smoke, args.tree, smi))
+    if args.double_backward:
+        smoke.phase_build()
+    timer = (time_double_backward if args.double_backward else
+             time_backward if args.backward else time_forward)
+    result.update(timer(smoke, args.tree, smi))
     print(json.dumps(result))
 
 
