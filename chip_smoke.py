@@ -2,9 +2,9 @@
 then drive the frame, the Painter, training, offline generation, the
 metric suite, inversion, latent editing, real-photo preprocessing, the
 legacy checkpoint import, the optional architectures (the hybrid feature
-volume, the SG3 superres, the built-in encoder, fine_steps) and the
+volume, the SG3 superres, the built-in encoder, fine_steps), the
 trainer's last features (path-length regularization through K1's double
-backward, wavelet ADA) at the flagship width.
+backward, wavelet ADA) and the trained-weight tools at the flagship width.
 
     python3 chip_smoke.py
 
@@ -214,6 +214,22 @@ Phases, one line each; any failure ends the run with a non-zero exit:
                views at 512²; apps.train_gan.main --pl-weight 2 --wavelet-aa
                --preset full --batch 4 for 2 steps on them (K1 (4, 4, 1) with
                the grid's render) and --resume of its snapshot.
+ 15. tools  - the trained-weight tools at full width: the flagship
+               GeneratorConfig() from init(seed=0), bf16, as a snapshot, a
+               HybridEncoder(512, 10, 8).init(seed=1) written by save_checkpoint
+               and 16 labelled 512² views from tools/torch_make_synthetic_dataset.py.
+               tools/torch_eval_trained_encoder.py --n 16 --batch 8 (K1 exactly
+               twice, at B=8; its first batch's K1 inputs through kernel and
+               plain, bf16 <= 1e-3; finite JSON); torch_painter_trained_demo.py
+               on the encoder's inversion (K1 exactly 7 times; the three PNGs;
+               the front recon within 1 uint8 level of G.synthesis);
+               torch_import_and_verify.py on a reference-layout pickle of
+               GeneratorConfig(vb_ref_compat=True, raw_head="slice") from
+               init(seed=15), every parameter and w_avg moved by N(0, 0.01²),
+               its names those io/torch_import reads (ref_layout_state): rc 0,
+               every tensor imported and equal to the pickled G's, finite
+               goldens, K1 8 times; --check-golden against its first run rc 0;
+               a second pickle with a duplicated decoder shape rc 2.
 Then one JSON line with the kernels, and last {"ok": true, "device": {...}}.
 In that line K1's `ms` and `plain_ms` are device times per call at B=3 from
 the CUDA graphs; `eager_ms` is the time between CUDA events around one eager
@@ -245,7 +261,9 @@ entry, `sort_integrate_double_backward`: `ms` its graph time at B=4, bf16,
 checked against PARITY_LAUNCHES) to the backward's and its own. The double
 backward's `design` names the PR of its design, `plan` the launch plan of the
 timed shape, `streamed_ms` the streamed plan's graph time on the same inputs
-with gg_a misaligned.
+with gg_a misaligned. Phase 15 adds `tools_launches` (per tool run) and
+`tools_max_abs_err` (the eval tool's batch-8 inputs) to K1's entry; K1's
+`max_abs_err` also takes phase 15's.
 """
 
 from __future__ import annotations
@@ -253,6 +271,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -4206,6 +4225,245 @@ def phase_parity(smi: str) -> dict:
     return {"k1_double_backward": k, "card_vs_cpu": e, "full": f, "app": a}
 
 
+TOOLS_EVAL_N, TOOLS_EVAL_BATCH = 16, 8  # torch_eval_trained_encoder: 2 batches of 8
+TOOLS_VIEWS = (4, 4)  # identities x views of the labelled 512² set
+TOOLS_ITEM = "00001_2"
+# K1 (forward, backward, double backward) of each tool run: one forward a G
+# pass. The demo renders the recon at its own pose and at the front (2), the
+# edit's two passes (2) and the yaw sweep from the plane cache (3);
+# import_and_verify renders 4 goldens and 4 gen_images batches of 3 yaws.
+TOOLS_LAUNCHES = {"eval_trained_encoder": (2, 0, 0), "painter_trained_demo": (7, 0, 0),
+                  "import_and_verify": (8, 0, 0)}
+REF_MOVE_STD = 0.01  # every parameter and w_avg of the pickled G moved by N(0, 0.01²)
+
+
+def ref_layout_state(G) -> dict:
+    """The state dict of a reference-layout pickle of a vb_ref_compat G, under
+    the names io/torch_import reads: the mapping and the vb/b blocks under
+    their own names, the renderer's decoder as an unnamed torch MLP
+    (synthesis.renderer.mlp.<leaf>.weight [out, in], .bias), which the
+    importer recovers by its unique shapes."""
+    sd = {}
+    for name, t in G.state_dict().items():
+        t = t.detach().float().cpu().clone()
+        if name.startswith("synthesis.renderer."):
+            leaf = name.rsplit(".", 1)[1]
+            kind = "weight" if t.ndim == 2 else "bias"
+            sd[f"synthesis.renderer.mlp.{leaf}.{kind}"] = t.t().contiguous() if t.ndim == 2 else t
+        else:
+            sd[name] = t
+    return sd
+
+
+def write_ref_pickle(path: str, sd: dict) -> None:
+    """{"G_ema": module tree} of plain dicts ({_parameters, _buffers,
+    _modules}, as a pickled nn.Module's state reads) holding `sd`'s tensors."""
+    import pickle
+
+    def node():
+        return {"_parameters": {}, "_buffers": {}, "_modules": {}}
+
+    root = node()
+    for name, t in sd.items():
+        *mods, leaf = name.split(".")
+        cur = root
+        for m in mods:
+            cur = cur["_modules"].setdefault(m, node())
+        cur["_parameters"][leaf] = t
+    with open(path, "wb") as f:
+        pickle.dump({"G_ema": root}, f)
+
+
+def tools_eval(snap: str, enc: str, data: str, smi: str) -> dict:
+    """torch_eval_trained_encoder --n 16 --batch 8 on the card: its JSON, K1
+    counted over the run, the first batch's K1 inputs held to plain."""
+    import contextlib as ctx
+    import io
+
+    import torch_eval_trained_encoder
+    from ide3d_tpu_torch.ops import ray_march
+    from ide3d_tpu_torch.render import renderer
+
+    captured = []
+
+    def capture(*args, **kw):
+        if not captured:
+            captured.append((args, kw))
+        return ray_march.sort_integrate(*args, **kw)
+
+    buf = io.StringIO()
+    renderer.sort_integrate = capture
+    try:
+        t0 = time.perf_counter()
+        zero_k1_counts()
+        with ctx.redirect_stdout(buf):
+            torch_eval_trained_encoder.main(["--network", snap, "--encoder", enc, "--data", data,
+                                             "--n", str(TOOLS_EVAL_N),
+                                             "--batch", str(TOOLS_EVAL_BATCH)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = k1_counts()
+    finally:
+        renderer.sort_integrate = ray_march.sort_integrate
+    rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if launches != TOOLS_LAUNCHES["eval_trained_encoder"]:
+        raise RuntimeError(f"eval_trained_encoder: K1 launches {launches}, "
+                           f"want {TOOLS_LAUNCHES['eval_trained_encoder']}")
+    if rec["n"] != TOOLS_EVAL_N or not all(np.isfinite(rec[k]) for k in ("rgb_l2", "seg_miou",
+                                                                          "ws_spread")):
+        raise RuntimeError(f"eval_trained_encoder: {rec}")
+    ((args, kw),) = captured
+    if args[1].shape[0] != TOOLS_EVAL_BATCH:
+        raise RuntimeError(f"eval_trained_encoder: K1 at B={args[1].shape[0]}")
+    with torch.inference_mode():
+        err = max_err(ray_march.sort_integrate(*args, **kw), ray_march.sort_integrate_plain(*args, **kw))
+    if err > 1e-3:
+        raise RuntimeError(f"eval_trained_encoder: K1 vs plain on its batch-8 inputs {err} > 1e-3")
+    print(f"tools: torch_eval_trained_encoder --n {TOOLS_EVAL_N} --batch {TOOLS_EVAL_BATCH} on the "
+          f"flagship bf16 snapshot and HybridEncoder(512, 10, 8).init(1): {json.dumps(rec)} in "
+          f"{wall:.1f} s, K1 (forward, backward, double backward) {launches}; K1 on its batch's "
+          f"inputs (vals {args[1].dtype}, {tuple(args[1].shape)}+{tuple(args[3].shape)}) vs plain "
+          f"max abs err {err:.3g} ({smi})", flush=True)
+    return {"launches": launches, "k1_err": err, "wall_s": wall, "json": rec}
+
+
+def tools_demo(snap: str, enc: str, data: str, root: str) -> dict:
+    """torch_painter_trained_demo on the encoder's inversion: K1 counted, the
+    three PNGs written, the front recon within 1 uint8 level of G.synthesis."""
+    import PIL.Image
+
+    import torch_painter_trained_demo
+    from ide3d_tpu_torch.apps.common import load_generator
+    from ide3d_tpu_torch.apps.infer_hybrid_encoder import build_encoder, load_image, load_mask
+    from ide3d_tpu_torch.render.camera import CANONICAL_POSE_25
+    from ide3d_tpu_torch.utils.seg import mask2onehot
+
+    out = os.path.join(root, "demo")
+    t0 = time.perf_counter()
+    zero_k1_counts()
+    torch_painter_trained_demo.main(["--network", snap, "--encoder", enc, "--data", data,
+                                     "--item", TOOLS_ITEM, "--outdir", out])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = k1_counts()
+    if launches != TOOLS_LAUNCHES["painter_trained_demo"]:
+        raise RuntimeError(f"painter_trained_demo: K1 launches {launches}, "
+                           f"want {TOOLS_LAUNCHES['painter_trained_demo']}")
+    G = load_generator(snap, "cuda")
+    E = build_encoder(G, enc, "cuda")
+    R = G.cfg.img_resolution
+    img = load_image(os.path.join(data, "img", TOOLS_ITEM + ".png"), R)
+    mask = load_mask(os.path.join(data, "seg", TOOLS_ITEM + ".png"), R)
+    with torch.inference_mode():
+        seg_pm = mask2onehot(torch.from_numpy(mask).cuda()[None]) * 2.0 - 1.0
+        ws = E(torch.from_numpy(img).cuda()[None], seg_pm) + G.mapping.w_avg[None, None]
+        front = _u8(G.synthesis(ws, torch.as_tensor(CANONICAL_POSE_25, device="cuda")[None]))[0]
+    recon = np.asarray(PIL.Image.open(os.path.join(out, "painter_trained_recon.png")), np.int32)
+    gap = int(np.abs(recon[:, 2 * R: 3 * R] - front).max())
+    if gap > 1:
+        raise RuntimeError(f"painter_trained_demo: front recon {gap} levels off G.synthesis")
+    for name in ("recon", "edit", "edit_mask"):
+        if not os.path.exists(os.path.join(out, f"painter_trained_{name}.png")):
+            raise RuntimeError(f"painter_trained_demo: no painter_trained_{name}.png")
+    print(f"tools: torch_painter_trained_demo --item {TOOLS_ITEM} (encoder inversion, hair "
+          f"dilation, edit, yaws -0.4/0/0.4) in {wall:.1f} s: K1 {launches}, the 3 PNGs written, "
+          f"front recon {gap} uint8 levels off G.synthesis", flush=True)
+    return {"launches": launches, "wall_s": wall, "front_gap": gap}
+
+
+def tools_import(root: str) -> dict:
+    """torch_import_and_verify on a reference-layout pickle of the
+    reference-compat G at full width (seeded, every parameter and w_avg moved by
+    N(0, 0.01²)): rc 0 with every tensor imported exactly, K1 counted;
+    --check-golden against its own first run; a second pickle whose decoder
+    has two tensors of one shape returns 2."""
+    import contextlib as ctx
+    import io
+
+    import torch_import_and_verify
+    from ide3d_tpu_torch.io.checkpoint import load_checkpoint
+    from ide3d_tpu_torch.models.generator import GeneratorConfig, Ide3dGenerator
+
+    cfg = GeneratorConfig(vb_ref_compat=True, raw_head="slice")
+    G = Ide3dGenerator(cfg).init(seed=15)
+    gen = torch.Generator().manual_seed(15)
+    with torch.no_grad():
+        for t in [*G.parameters(), G.mapping.w_avg]:
+            t.add_(torch.randn(t.shape, generator=gen) * REF_MOVE_STD)
+    sd = ref_layout_state(G)
+    want = {k: v.detach().float().cpu() for k, v in G.state_dict().items()}
+    del G
+    pkl = os.path.join(root, "ref.pkl")
+    write_ref_pickle(pkl, sd)
+    runs, rcs, buf = {}, {}, io.StringIO()
+    for label, extra in (("first", []), ("check_golden", ["--check-golden", os.path.join(
+            root, "iv_first", "golden_import.npz")])):
+        t0 = time.perf_counter()
+        zero_k1_counts()
+        with ctx.redirect_stdout(buf):
+            rcs[label] = torch_import_and_verify.main([pkl, "--outdir", os.path.join(root, f"iv_{label}"),
+                                                       *extra])
+        torch.cuda.synchronize()
+        runs[label] = (time.perf_counter() - t0, k1_counts())
+        if rcs[label] != 0 or runs[label][1] != TOOLS_LAUNCHES["import_and_verify"]:
+            raise RuntimeError(f"import_and_verify ({label}): rc {rcs[label]}, K1 {runs[label][1]}, "
+                               f"want 0, {TOOLS_LAUNCHES['import_and_verify']}\n"
+                               f"{buf.getvalue()[-3000:]}")
+    log = buf.getvalue()
+    if "0 source tensors unmapped" not in log or "0 destination leaves left initialized" not in log:
+        raise RuntimeError(f"import_and_verify: not every tensor imported:\n{log[-3000:]}")
+    saved, _ = load_checkpoint(os.path.join(root, "iv_first", "ckpt"))
+    diff = [k for k, v in want.items() if not torch.equal(saved["G_ema"][k].float(), v)]
+    if sorted(saved["G_ema"]) != sorted(want) or diff:
+        raise RuntimeError(f"import_and_verify: imported G differs from the pickled one at {diff[:5]}")
+    golden = np.load(os.path.join(root, "iv_first", "golden_import.npz"))
+    if not all(np.isfinite(golden[k]).all() for k in golden.files):
+        raise RuntimeError("import_and_verify: non-finite goldens")
+    # The ambiguous pickle: the decoder's first bias doubled under another name.
+    amb = dict(sd)
+    b1 = next(k for k in sd if k.startswith("synthesis.renderer.") and k.endswith(".bias"))
+    amb["synthesis.renderer.extra.bias"] = sd[b1].clone()
+    write_ref_pickle(pkl, amb)
+    with ctx.redirect_stdout(io.StringIO()):
+        rcs["ambiguous"] = torch_import_and_verify.main([pkl, "--outdir", os.path.join(root, "iv_amb")])
+    if rcs["ambiguous"] != 2:
+        raise RuntimeError(f"import_and_verify on the ambiguous pickle: rc {rcs['ambiguous']}, want 2")
+    print(f"tools: torch_import_and_verify on a reference-layout pickle of "
+          f"GeneratorConfig(vb_ref_compat=True, raw_head='slice') (init(15), moved by N(0, "
+          f"{REF_MOVE_STD}²), {len(sd)} tensors, {os.path.getsize(pkl) >> 20} MiB): rc "
+          f"{rcs['first']} in {runs['first'][0]:.1f} s, every tensor imported and equal, goldens "
+          f"finite, K1 {runs['first'][1]}; --check-golden rc {rcs['check_golden']} in "
+          f"{runs['check_golden'][0]:.1f} s; duplicated decoder shape rc {rcs['ambiguous']}",
+          flush=True)
+    return {"launches": runs["first"][1], "wall_s": runs["first"][0], "rcs": rcs}
+
+
+def phase_tools(smi: str) -> dict:
+    import tempfile
+
+    from ide3d_tpu_torch.io.checkpoint import save_checkpoint
+    from ide3d_tpu_torch.models.encoder import HybridEncoder
+    from ide3d_tpu_torch.models.generator import GeneratorConfig
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        snap, enc, data = (os.path.join(root, d) for d in ("g", "e", "sphere"))
+        write_snapshot(snap, GeneratorConfig(), seed=0)
+        save_checkpoint(enc, {"E": HybridEncoder(512, 10, 8).init(seed=1).state_dict()})
+        subprocess.run([sys.executable, "tools/torch_make_synthetic_dataset.py", "--out", data,
+                        "--identities", str(TOOLS_VIEWS[0]), "--views", str(TOOLS_VIEWS[1]),
+                        "--resolution", "512"], check=True, capture_output=True, text=True,
+                       timeout=300)
+        inputs_s = time.perf_counter() - t0
+        ev = tools_eval(snap, enc, data, smi)
+        demo = tools_demo(snap, enc, data, root)
+        imp = tools_import(root)
+    wall = time.perf_counter() - t0
+    print(f"tools: phase 15 in {wall:.1f} s (inputs {inputs_s:.1f} s)", flush=True)
+    return {"eval": ev, "demo": demo, "import": imp, "wall_s": wall}
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
@@ -4222,6 +4480,7 @@ def main() -> None:
     pre = phase_preprocess(smi.splitlines()[0])
     arch = phase_arch(smi.splitlines()[0])
     par = phase_parity(smi.splitlines()[0])
+    tools = phase_tools(smi.splitlines()[0])
     main_path, b1 = k["timing"][3], k["timing"][1]  # the frame runs K1 at B=3
     kb = tr["k1_backward"]
     kd = par["k1_double_backward"]
@@ -4234,7 +4493,8 @@ def main() -> None:
         "max_abs_err": max(k["max_abs_err"], f["frame_err"], off["mesh"]["k1_err"],
                            *(v["k1_err"] for v in off["video"].values()),
                            *met["counted"]["k1_err"].values(), inv["k1"]["fwd_err"],
-                           ed["k1"]["fwd_err"], ed["viz"]["k1"]["fwd_err"], arch["k1_err"]),
+                           ed["k1"]["fwd_err"], ed["viz"]["k1"]["fwd_err"], arch["k1_err"],
+                           tools["eval"]["k1_err"]),
         "ms": main_path["ms"],
         "plain_ms": main_path["plain_ms"],
         "eager_ms": main_path["eager_ms"],
@@ -4272,6 +4532,10 @@ def main() -> None:
                              "hybrid_b3_density_moved": arch["hybrid"]["k1_err_moved"],
                              "sg3_b3": arch["sg3"]["k1_err"],
                              "fine_64_128": arch["fine"]["k1_err"]},
+        "tools_launches": {k: tools[v]["launches"][0] for k, v in (
+            ("eval_trained_encoder", "eval"), ("painter_trained_demo", "demo"),
+            ("import_and_verify", "import"))},
+        "tools_max_abs_err": {"eval_trained_encoder_b8": tools["eval"]["k1_err"]},
     }, {
         "name": "sort_integrate_backward",
         "route": "cuda",

@@ -71,9 +71,10 @@ def test_towers_and_logits_match_jax(bridged, inputs):
         ei = m.encode_image(torch.from_numpy(x))
         et = m.encode_text(torch.from_numpy(toks))
         li, lt = m(torch.from_numpy(x), torch.from_numpy(toks))
-    rel_close(ei, jm.encode_image(p, jnp.asarray(x)), name="encode_image")
-    rel_close(et, jm.encode_text(p, jnp.asarray(toks)), name="encode_text")
-    jli, jlt = jm(p, jnp.asarray(x), jnp.asarray(toks))
+    jei, jet, (jli, jlt) = jax.jit(lambda p, x, t: (jm.encode_image(p, x), jm.encode_text(p, t),
+                                                     jm(p, x, t)))(p, jnp.asarray(x), jnp.asarray(toks))
+    rel_close(ei, jei, name="encode_image")
+    rel_close(et, jet, name="encode_text")
     rel_close(li, jli, name="logits_per_image")
     rel_close(lt, jlt, name="logits_per_text")
 
@@ -89,7 +90,8 @@ def test_state_dict_is_the_openai_layout(bridged, inputs, tmp_path):
     assert tclip.config_from_state_dict(sd, head_dim=16) == tclip.ClipConfig(**CFG)
     jm2, p2 = jclip.import_clip(sd, head_dim=16)
     x = jnp.asarray(inputs["img"])
-    rel_close(jm2.encode_image(p2, x), jm.encode_image(p, x), name="via the JAX importer")
+    rel_close(jax.jit(jm2.encode_image)(p2, x), jax.jit(jm.encode_image)(p, x),
+              name="via the JAX importer")
     for i, obj in enumerate((m.state_dict(), {"state_dict": m.state_dict(), "epoch": 3})):
         path = str(tmp_path / f"clip{i}.pt")
         torch.save(obj, path)
@@ -107,9 +109,10 @@ def test_preprocess_matches_jax(bridged, inputs):
     jm, _, m = bridged
     rng = np.random.RandomState(3)
     for x in (inputs["img64"], rng.uniform(-1, 1, (1, 16, 16, 3)).astype(np.float32), inputs["img"]):
-        rel_close(m.preprocess(torch.from_numpy(x)), jm.preprocess(jnp.asarray(x)), name=x.shape)
+        rel_close(m.preprocess(torch.from_numpy(x)), jax.jit(jm.preprocess)(jnp.asarray(x)),
+                  name=x.shape)
     rel_close(m.preprocess_pool(torch.from_numpy(inputs["img64"])),
-              jm.preprocess_pool(jnp.asarray(inputs["img64"])), name="pool")
+              jax.jit(jm.preprocess_pool)(jnp.asarray(inputs["img64"])), name="pool")
 
 
 def test_preprocess_at_full_width_matches_jax():
@@ -122,10 +125,10 @@ def test_preprocess_at_full_width_matches_jax():
     for S in (512, 32):
         x = rng.uniform(-1, 1, (1, S, S, 3)).astype(np.float32)
         got = tclip.CLIP.preprocess(stub, torch.from_numpy(x))
-        rel_close(got, jm.preprocess(jnp.asarray(x)), name=S)
+        rel_close(got, jax.jit(jm.preprocess)(jnp.asarray(x)), name=S)
     x = rng.uniform(-1, 1, (1, 512, 512, 3)).astype(np.float32)
     rel_close(tclip.CLIP.preprocess_pool(stub, torch.from_numpy(x)),
-              jm.preprocess_pool(jnp.asarray(x)), name="pool 512")
+              jax.jit(jm.preprocess_pool)(jnp.asarray(x)), name="pool 512")
 
 
 def test_loss_embedder_and_text_direction_match_jax(bridged, inputs):
@@ -136,9 +139,9 @@ def test_loss_embedder_and_text_direction_match_jax(bridged, inputs):
         loss = tclip.clip_similarity_loss(m, torch.from_numpy(x), torch.from_numpy(inputs["tokens"]))
         emb = tclip.make_image_embedder(m)(torch.from_numpy(x))
         d = tclip.text_direction(m, tok, "low", "lower")
-    rel_close(loss, jclip.clip_similarity_loss(jm, p, jnp.asarray(x), jnp.asarray(inputs["tokens"])),
-              name="clip_similarity_loss")
-    rel_close(emb, jclip.make_image_embedder(jm, p)(jnp.asarray(x)), name="embedder")
+    rel_close(loss, jax.jit(lambda p, x, t: jclip.clip_similarity_loss(jm, p, x, t))(
+        p, jnp.asarray(x), jnp.asarray(inputs["tokens"])), name="clip_similarity_loss")
+    rel_close(emb, jax.jit(jclip.make_image_embedder(jm, p))(jnp.asarray(x)), name="embedder")
     rel_close(d, jclip.text_direction(jm, p, jtok, "low", "lower"), name="text_direction")
     assert abs(float(torch.linalg.vector_norm(d)) - 1.0) < 1e-5
 

@@ -215,12 +215,13 @@ def test_mapper_step_matches_jax(bridged, clip_pair, arcface):
     """One coach step with the CLIP, ID and latent terms, on the JAX package's
     latents and mapper init: the stats and the updated mapper against the
     JAX step (the parameters within 1e-4 of the mapper's largest), and the
-    mapper's gradients, tensor by tensor, against jax.grad of the JAX step's
-    loss (train/styleclip.py:84-108, written out from the same pieces).
-    At the random inits the gradients are 1e-9..1e-6, as small as Adam's eps
-    (1e-8), where the first update lr g / (|g| + eps) turns fp32 rounding of
-    g into update differences of up to ~1e-3 lr: the biases, which start at
-    0, are held through their gradients."""
+    mapper's gradients, tensor by tensor, against the JAX step's own gradient
+    of its loss (train/styleclip.py:84-108), read from Adam's first moment
+    after the first step (mu = (1 - b1) g). At the random inits the gradients
+    are 1e-9..1e-6, as small as Adam's eps (1e-8), where the first update
+    lr g / (|g| + eps) turns fp32 rounding of g into update differences of up
+    to ~1e-3 lr: the biases, which start at 0, are held through their
+    gradients."""
     jG, params, G = bridged
     jm, cp, m = clip_pair
     jarc, arc_tree, arc = arcface
@@ -234,37 +235,20 @@ def test_mapper_step_matches_jax(bridged, clip_pair, arcface):
     tokens = jnp.asarray(_tokens())
     embed = lambda img: jarc.embed_faces(arc_tree, img)  # noqa: E731
 
-    def jloss(mp, w):
-        c = jnp.asarray(_front(2))
-        w_hat = w + 0.1 * jmapper(mp, w)
-        x_hat = jG.synthesis(params["synthesis"], w_hat, c)
-        l_clip = jnp.mean(jclip.clip_similarity_loss(jm, cp, x_hat, tokens))
-        x = jax.lax.stop_gradient(jG.synthesis(params["synthesis"], w, c))
-        e_hat, e = embed(x_hat), jax.lax.stop_gradient(embed(x))
-        e_hat = e_hat / jnp.linalg.norm(e_hat, axis=-1, keepdims=True)
-        e = e / jnp.linalg.norm(e, axis=-1, keepdims=True)
-        l_id = jnp.mean(1.0 - jnp.sum(e_hat * e, axis=-1))
-        return l_clip + 0.1 * l_id + 0.8 * jnp.mean((w_hat - w) ** 2)
-
-    jval, jgrad = jax.jit(jax.value_and_grad(jloss))(state.mapper_params, jnp.asarray(w))
     jstep = jstyleclip.make_styleclip_step(jG, params, jmapper, jm, cp, tokens, cfg, embed_id=embed)
     state, jstats = jstep(state, jnp.asarray(w))
-    rel_close(jval, jstats["loss"], TOL, "the written-out loss is the step's")
+    assert int(state.opt[0].count) == 1  # optax.adam's moments after its first update
+    jgrad = jax.tree_util.tree_map(lambda mu: mu / (1.0 - 0.9), state.opt[0].mu)
 
     tcfg = styleclip.StyleClipConfig(lr=0.05, batch_size=2)
-    loss, _ = styleclip.styleclip_loss(G, mapper, m, torch.from_numpy(_tokens()), torch.from_numpy(w),
-                                       tcfg, arc.embed_faces)
-    names = [n for n, _ in mapper.named_parameters()]
-    grads = torch.autograd.grad(loss, list(mapper.parameters()))
-    jgrad = _np(jgrad)
-    for name, g in zip(names, grads):
-        group, fc, leaf = name.split(".")
-        ref = jgrad[group][fc][leaf]
-        rel_close(g.numpy(), ref.T if ref.ndim == 2 else ref, STEP_TOL, f"grad {name}")
-
     step = styleclip.make_styleclip_step(G, mapper, m, torch.from_numpy(_tokens()), tcfg,
                                          embed_id=arc.embed_faces)
     stats = step(torch.from_numpy(w))
+    jgrad = _np(jgrad)
+    for name, p in mapper.named_parameters():  # the step leaves its gradient in .grad
+        group, fc, leaf = name.split(".")
+        ref = jgrad[group][fc][leaf]
+        rel_close(p.grad.numpy(), ref.T if ref.ndim == 2 else ref, STEP_TOL, f"grad {name}")
     assert set(stats) == set(jstats) == {"loss", "loss_clip", "loss_id", "loss_l2_latent"}
     for k in stats:
         rel_close(stats[k], jstats[k], STEP_TOL, k)
@@ -340,9 +324,8 @@ def _perturbed(params, rng):
 
 @pytest.fixture(scope="module")
 def nada_case(bridged, clip_pair):
-    """The NADA inputs and jax.grad of the JAX step's loss (train/nada.py:72-82,
-    written out) in the synthesis parameters: the same for both settings of
-    freeze_geometry, so built once."""
+    """The NADA inputs: the text direction, z, the trained copy's start, the
+    JAX image embedder and the cameras."""
     jG, params, _ = bridged
     jm, cp, _ = clip_pair
     rng = np.random.RandomState(9)
@@ -350,25 +333,16 @@ def nada_case(bridged, clip_pair):
     z = rng.randn(2, 512).astype(np.float32)
     start = _np(_perturbed(params, rng))  # numpy: the JAX step donates its state
     jembed = jclip.make_image_embedder(jm, cp)
-    c = jnp.asarray(_front(2))
-
-    def jloss(syn):
-        ws = jG.mapping(params["mapping"], jnp.asarray(z), c)
-        e_t = jembed(jG.synthesis(syn, ws, c))
-        e_f = jax.lax.stop_gradient(jembed(jG.synthesis(params["synthesis"], ws, c)))
-        d = e_t - e_f
-        d = d / (jnp.linalg.norm(d, axis=-1, keepdims=True) + 1e-8)
-        return jnp.mean(1.0 - d @ (tdir / (np.linalg.norm(tdir) + 1e-8)))
-
-    jgrad = _np(jax.jit(jax.grad(jloss))(jax.tree_util.tree_map(jnp.asarray, start["synthesis"])))
-    return tdir, z, start, jembed, c, jgrad
+    return tdir, z, start, jembed, jnp.asarray(_front(2))
 
 
 @pytest.mark.parametrize("freeze_geometry", [True, False])
 def test_nada_step_matches_jax(bridged, clip_pair, nada_case, monkeypatch, freeze_geometry):
     """One NADA step against the JAX step: the loss within 1e-5, the trained
-    parameters' gradients tensor by tensor against jax.grad of the JAX step's
-    loss (train/nada.py:72-82, written out) within 1e-4 x max|grad|, the
+    parameters' gradients (as the step leaves them) tensor by tensor against
+    the JAX step's own gradient of its loss (train/nada.py:72-82), Adam's
+    first moment after the step (betas (0, 0.99): mu = g), within 1e-4 x
+    max|grad|, the
     updated synthesis within 1e-4 of its largest parameter, and every other
     parameter of the trained copy bit-identical. With betas (0, 0.99) Adam's
     first update is lr g / (|g| + eps), about lr sign(g): where |g| is near
@@ -376,12 +350,15 @@ def test_nada_step_matches_jax(bridged, clip_pair, nada_case, monkeypatch, freez
     through the gradients."""
     jG, params, G = bridged
     _, _, m = clip_pair
-    tdir, z, start, jembed, c, jgrad = nada_case
+    tdir, z, start, jembed, c = nada_case
     jcfg = jnada.NadaConfig(freeze_geometry=freeze_geometry)
+    assert jcfg.betas[0] == 0.0  # so that Adam's first moment is the gradient
     st = jnada.init_nada_state(jG, params, jcfg)._replace(
         params_train=jax.tree_util.tree_map(jnp.asarray, start))
     jstep = jnada.make_nada_step(_ConstJaxG(jG), params, jembed, jnp.asarray(tdir), jcfg)
     st, jloss_val = jstep(st, jnp.asarray(z), c, jax.random.PRNGKey(0))
+    assert int(st.opt[0].count) == 1
+    jgrad = _np(st.opt[0].mu)
 
     orig = Ide3dSynthesisNetwork.forward
     monkeypatch.setattr(Ide3dSynthesisNetwork, "forward",
@@ -392,16 +369,13 @@ def test_nada_step_matches_jax(bridged, clip_pair, nada_case, monkeypatch, freez
     before = {k: v.clone() for k, v in G_train.state_dict().items()}
     embed, gen = tclip.make_image_embedder(m), torch.Generator().manual_seed(0)
     trained = nada.nada_parameters(G_train, freeze_geometry)
-    tdir_t = torch.from_numpy(tdir) / (torch.linalg.vector_norm(torch.from_numpy(tdir)) + 1e-8)
-    loss = nada.nada_loss(G_train, G, embed, tdir_t, torch.from_numpy(z), torch.from_numpy(_front(2)), gen)
-    want_grad = Ide3dGenerator(G.cfg).synthesis
-    load_jax_params(want_grad, jgrad)
-    for (name, _), g in zip(trained, torch.autograd.grad(loss, [p for _, p in trained])):
-        rel_close(g.numpy(), want_grad.state_dict()[name].numpy(), STEP_TOL, f"grad {name}")
-
     step = nada.make_nada_step(G_train, G, embed, torch.from_numpy(tdir), cfg)
     loss = step(torch.from_numpy(z), torch.from_numpy(_front(2)), gen)
     assert abs(float(loss) - float(jloss_val)) <= 1e-5, (float(loss), float(jloss_val))
+    want_grad = Ide3dGenerator(G.cfg).synthesis
+    load_jax_params(want_grad, jgrad)
+    for name, p in trained:  # the step leaves its gradient in .grad
+        rel_close(p.grad.numpy(), want_grad.state_dict()[name].numpy(), STEP_TOL, f"grad {name}")
     want = Ide3dGenerator(G.cfg)
     load_jax_params(want, _np(st.params_train))
     names = {n for n, _ in trained}

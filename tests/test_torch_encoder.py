@@ -111,7 +111,7 @@ def test_encoder_matches_jax():
     params = jE.init(jax.random.PRNGKey(5))
     E = load_jax_params(tenc.Encoder(size=16, n_latents=3, input_dim=4), _np_tree(params))
     x = np.random.RandomState(3).randn(2, 16, 16, 4).astype(np.float32)
-    ref = np.asarray(jE(params, jnp.asarray(x)))
+    ref = np.asarray(jax.jit(jE)(params, jnp.asarray(x)))
     _assert_close("Encoder", E(torch.from_numpy(x)).numpy(), ref)
 
 

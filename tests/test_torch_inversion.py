@@ -186,9 +186,11 @@ def _projector_start(G, rng):
     return w, noise
 
 
-def test_projector_step_loss_and_gradients_match_jax(bridged, inputs):
-    """One projector step's loss and its w+ and noise gradients, with the JAX
-    loss written from the JAX package's public pieces (its project_w_plus loss)."""
+@pytest.fixture(scope="module")
+def projector_case(bridged, inputs):
+    """The projector step's start (w+, noise), the JAX loss and gradients at
+    it, the loss written from the JAX package's public pieces (its
+    project_w_plus loss), and the port's loss and gradients there."""
     jG, gp, G = bridged
     cfg = pti.ProjectorConfig()
     w, noise = _projector_start(G, np.random.RandomState(5))
@@ -203,19 +205,60 @@ def test_projector_step_loss_and_gradients_match_jax(bridged, inputs):
 
     ref_loss, ref_g = jax.jit(jax.value_and_grad(jloss))(
         {"w": jnp.asarray(w), "noise": {k: jnp.asarray(v) for k, v in noise.items()}})
+    return w, noise, ref_loss, ref_g, _port_projector_grads(G, w, noise, inputs)
 
-    tw = t(w).requires_grad_(True)
-    tn = {k: t(v).requires_grad_(True) for k, v in noise.items()}
-    feats = [f.detach() for f in pti.default_pyramid_feats(t(target))]
-    loss, _ = pti.projector_loss(G, tw, tn, t(c), feats, cfg)
-    grads = torch.autograd.grad(loss, [tw, *tn.values()])
+
+@torch.enable_grad()  # a module fixture calls it, outside the per-test _autograd_on
+def _port_projector_grads(G, w, noise, inputs):
+    cfg = pti.ProjectorConfig()
+    dt = next(G.parameters()).dtype
+    tw = torch.as_tensor(w, dtype=dt).requires_grad_(True)
+    tn = {k: torch.as_tensor(v, dtype=dt).requires_grad_(True) for k, v in noise.items()}
+    feats = [f.detach() for f in pti.default_pyramid_feats(torch.as_tensor(inputs["target"], dtype=dt))]
+    loss, _ = pti.projector_loss(G, tw, tn, torch.as_tensor(inputs["c"], dtype=dt), feats, cfg)
+    return loss, torch.autograd.grad(loss, [tw, *tn.values()])
+
+
+def test_projector_step_loss_and_gradients_match_jax(bridged, inputs, projector_case):
+    """One projector step's loss and its w+ and noise gradients, with the JAX
+    loss written from the JAX package's public pieces (its project_w_plus loss)."""
+    jG, gp, G = bridged
+    w, noise, ref_loss, ref_g, (loss, grads) = projector_case
     np.testing.assert_allclose(float(loss.detach()), float(ref_loss), rtol=1e-5)
     rel_close(grads[0], ref_g["w"], GRAD_TOL, "dw")
     got_n = np.concatenate([g.numpy().ravel() for g in grads[1:]])
-    ref_n = np.concatenate([np.asarray(ref_g["noise"][k]).ravel() for k in tn])
+    ref_n = np.concatenate([np.asarray(ref_g["noise"][k]).ravel() for k in noise])
     assert float(np.abs(ref_n).max()) > 0  # the noise takes part at strength 0.3
     rel_close(got_n, ref_n, GRAD_TOL, "dnoise")
     assert all(p.grad is None for p in G.parameters())  # G's own gradients untouched
+
+
+def test_projector_fp32_gradient_gap_is_jaxs(bridged, inputs, projector_case):
+    """The fp32 gradient gap (ROADMAP Queue 3): the JAX package's fp32 w+ and
+    noise gradients and the port's, each against the port in float64
+    (chip_smoke.float64_render), which is the JAX package's own float64 here
+    to 1e-14 (tools/fp32_grad_gap.py --case projector runs JAX with x64).
+    max |g32 - g64| / max |g64| over both groups: JAX's 7.5e-6, the port's
+    1.2e-6; the port's is at most twice JAX's."""
+    from chip_smoke import float64_render
+
+    jG, gp, G = bridged
+    w, noise, _, ref_g, (_, g32) = projector_case
+    with float64_render():
+        G64 = Ide3dGenerator(G.cfg)  # built inside: the modules read their compute dtype when made
+        G64.load_state_dict(G.state_dict())
+        _, g64 = _port_projector_grads(G64.eval().double(), w, noise, inputs)
+    ref = [g.double().numpy() for g in g64]
+    jax32 = [np.asarray(ref_g["w"], np.float64)] + [np.asarray(ref_g["noise"][k], np.float64)
+                                                    for k in noise]
+
+    def gap(got):
+        return max(float(np.abs(a - b).max()) / float(np.abs(b).max()) for a, b in zip(got, ref))
+
+    jax_gap, port_gap = gap(jax32), gap([g.double().numpy() for g in g32])
+    assert all(np.isfinite(r).all() for r in ref) and float(np.abs(ref[1]).max()) > 0
+    assert 0 < jax_gap < 1e-4 and 0 < port_gap < 1e-4, (jax_gap, port_gap)
+    assert port_gap <= 2 * jax_gap, (port_gap, jax_gap)
 
 
 def test_three_projector_steps_match_jax(bridged, inputs):

@@ -479,13 +479,29 @@ def test_preprocess_entry_points_reach_the_cpu_only_when_asked(monkeypatch):
         assert seen.pop() == torch.device(want)
 
 
+# The trained-weight tools of tools/ and the port modules they import inside
+# their functions (tests/test_torch_tools.py reads their import statements).
+TOOL_IMPORTS = (
+    "torch_import_and_verify", "torch_eval_trained_encoder", "torch_painter_trained_demo",
+    "torch_trained_workflow", "ide3d_tpu_torch.apps.common", "ide3d_tpu_torch.apps.gen_images",
+    "ide3d_tpu_torch.apps.calc_metrics", "ide3d_tpu_torch.apps.infer_hybrid_encoder",
+    "ide3d_tpu_torch.apps.painter", "ide3d_tpu_torch.io.checkpoint",
+    "ide3d_tpu_torch.io.torch_import", "ide3d_tpu_torch.metrics.features",
+    "ide3d_tpu_torch.render.camera", "ide3d_tpu_torch.utils.seg",
+    "ide3d_tpu_torch.data.dataset", "ide3d_tpu_torch.models.discriminator",
+    "ide3d_tpu_torch.models.generator", "ide3d_tpu_torch.ops.ray_march",
+    "ide3d_tpu_torch.render.renderer", "ide3d_tpu_torch.train.gan")
+
+
 def test_new_modules_import_no_jax():
     import subprocess
     import sys
 
-    code = ("import sys, ide3d_tpu_torch.apps.preprocess_in_the_wild, "
+    code = ("import sys; sys.path.insert(0, 'tools'); "
+            "import ide3d_tpu_torch.apps.preprocess_in_the_wild, "
             "ide3d_tpu_torch.apps.dataset_tool, ide3d_tpu_torch.io.tf_legacy, "
-            "ide3d_tpu_torch.models.stylegan2; print('jax' in sys.modules, 'ide3d_tpu' in sys.modules)")
+            f"ide3d_tpu_torch.models.stylegan2, {', '.join(TOOL_IMPORTS)}; "
+            "print('jax' in sys.modules, 'ide3d_tpu' in sys.modules)")
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run([sys.executable, "-c", code], cwd=repo, capture_output=True, text=True,
                          check=True, timeout=120)

@@ -292,9 +292,9 @@ def test_jax_snapshot_with_unported_option_refused(case, tmp_path):
     c = np.asarray(jrender.CANONICAL_POSE_25, np.float32)[None]
     z = np.random.RandomState(3).randn(1, 512).astype(np.float32)
     img = np.random.RandomState(4).uniform(-1, 1, (1, 32, 32, 3)).astype(np.float32)
-    ws = np.asarray(jG.mapping(params["mapping"], z, c))
+    ws = np.asarray(jax.jit(lambda p, z, c: jG.mapping(p, z, c))(params["mapping"], z, c))
     want = np.asarray(jax.jit(lambda p, w, c: jG.synthesis(p, w, c))(params["synthesis"], ws, c))
-    jws, _ = jG.encode(params, img)
+    jws = jax.jit(lambda p, x: jG.encode(p, x)[0])(params, img)
     with torch.no_grad():
         got = G.synthesis(torch.tensor(ws), torch.from_numpy(c)).numpy()
         tws, cam = G.encode(torch.from_numpy(img))

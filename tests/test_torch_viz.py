@@ -192,18 +192,19 @@ def test_multiview_encoder_matches_jax(views):
     kappa = 1.0
     with torch.no_grad():
         for name, x, dim, nl in (("img", img, 3, 2), ("seg", seg, 19, 3)):
-            jfeats = np.asarray(jE._stream(dim, nl)[0](p[name]["pyramid"], jnp.asarray(x)))
+            jfeats = np.asarray(jax.jit(jE._stream(dim, nl)[0])(p[name]["pyramid"], jnp.asarray(x)))
             feats = getattr(E, name).pyramid(torch.from_numpy(x).permute(0, 3, 1, 2))
             err, scale = float(np.abs(feats.numpy() - jfeats).max()), float(np.abs(jfeats).max())
             assert err <= 1e-5 * scale, (name, err, scale)
             if views > 1:
                 fused = E._fuse(torch.from_numpy(jfeats), 2).numpy()
-                jfused = np.asarray(jE._fuse(jnp.asarray(jfeats), 2))
+                jfused = np.asarray(jax.jit(lambda f: jE._fuse(f, 2))(jnp.asarray(jfeats)))
                 assert np.abs(fused - jfused).max() <= 1e-5 * np.abs(jfused).max(), name
                 sigma = jfeats.reshape(views, 2, -1)[..., : jfeats.shape[-1] // 2]
                 kappa = max(kappa, np.abs(sigma).max() / np.abs(sigma.sum(0)).min())
         got = E(torch.from_numpy(img), torch.from_numpy(seg), num_view=views)
-    want = np.asarray(jE(p, jnp.asarray(img), jnp.asarray(seg), num_view=views))
+    want = np.asarray(jax.jit(lambda p, i, s: jE(p, i, s, num_view=views))(
+        p, jnp.asarray(img), jnp.asarray(seg)))
     assert got.shape == want.shape == (2, 5, 16)
     err, scale = float(np.abs(got.numpy() - want).max()), float(np.abs(want).max())
     assert err <= 1e-5 * scale * kappa, (err, scale, kappa)
@@ -220,8 +221,17 @@ def test_multiview_fusion_weights():
 # ------------------------------------------------------------------------ CLIs
 
 
+@pytest.fixture(scope="module")
+def jax_encoder_tree(bridged):
+    """The JAX CLIs' encoder, HybridEncoder.init(PRNGKey(0)) at G's width, as numpy."""
+    G = bridged[2]
+    n_geo = G.synthesis.num_ws_geo
+    jE = JHybridEncoder(size=32, n_latents_app=G.num_ws - n_geo, n_latents_geo=n_geo, w_dim=512)
+    return _np(jax.jit(jE.init)(jax.random.PRNGKey(0)))
+
+
 @pytest.fixture
-def both_clis(bridged, monkeypatch):
+def both_clis(bridged, jax_encoder_tree, monkeypatch):
     """Both packages' load_generator hand out the bridged G and their
     write_video capture the frames; the port's encoder is the JAX CLI's
     (HybridEncoder.init(PRNGKey(0)), bridged); the port's G passes are
@@ -240,13 +250,11 @@ def both_clis(bridged, monkeypatch):
     monkeypatch.setattr(jcommon, "write_video", capture("jax"))
     monkeypatch.setattr(tcommon, "write_video", capture("port"))
     n_geo = G.synthesis.num_ws_geo
-    jE = JHybridEncoder(size=32, n_latents_app=G.num_ws - n_geo, n_latents_geo=n_geo, w_dim=512)
-    e_tree = _np(jax.jit(jE.init)(jax.random.PRNGKey(0)))
 
     def build_encoder(G_, encoder, device):
         assert encoder == "random:0"
         E = HybridEncoder(size=32, n_latents_app=G_.num_ws - n_geo, n_latents_geo=n_geo, w_dim=512)
-        return load_jax_params(E, e_tree).to(device).eval().requires_grad_(False)
+        return load_jax_params(E, jax_encoder_tree).to(device).eval().requires_grad_(False)
 
     monkeypatch.setattr(infer_hybrid_encoder, "build_encoder", build_encoder)
     real = Ide3dSynthesisNetwork.forward
