@@ -4,7 +4,8 @@ metric suite, inversion, latent editing, real-photo preprocessing, the
 legacy checkpoint import, the optional architectures (the hybrid feature
 volume, the SG3 superres, the built-in encoder, fine_steps), the
 trainer's last features (path-length regularization through K1's double
-backward, wavelet ADA) and the trained-weight tools at the flagship width.
+backward, wavelet ADA), the trained-weight tools and data parallelism over
+every card at the flagship width.
 
     python3 chip_smoke.py
 
@@ -230,6 +231,38 @@ Phases, one line each; any failure ends the run with a non-zero exit:
                every tensor imported and equal to the pickled G's, finite
                goldens, K1 8 times; --check-golden against its first run rc 0;
                a second pickle with a duplicated decoder shape rc 2.
+ 16. parallel - data parallelism at the full width, one rank a card spawned
+               at world size torch.cuda.device_count() over NCCL, each rank
+               running the paths as torchrun's ranks do (RANK, WORLD_SIZE,
+               LOCAL_RANK, a fresh MASTER_PORT a call): the ray-sharded frame
+               (parallel/render.make_ray_sharded_frame) of the flagship and
+               the hybrid G from snapshots at B=1 and 3 against G.synthesis
+               on the same card (max abs err, <= 1 uint8 level), K1 exactly
+               once per rank on (B, 4096/world, 96, 52) and those inputs
+               through kernel and plain (bf16 <= 1e-3), the B=3 frame's event
+               ms beside G.synthesis's; gen_videos on phase 8's flagship
+               snapshot and arguments (every uint8 frame equal to phase 8's,
+               K1 once a chunk per rank); train_gan --preset full --batch 4
+               --pl-weight 2 for 2 steps on 8 views at 512² from
+               tools/torch_make_synthetic_dataset.py (the replicas checked at
+               the snapshot, K1 (4, 4, 1) on rank 0 and (3, 4, 1) on the
+               others) and --resume of its snapshot (every state dict
+               restored); the flagship train step at global batch 4 without a
+               group and with it, on one state, in turns (event ms; K1 (1, 1,
+               0)); train_hybrid_encoder at batch 4 for 2 steps (K1 (6, 4, 0));
+               calc_metrics fid (pixel detector) on 64 items and 64 labelled
+               512² images at --batch 8 --mesh-devices world (K1 8 per rank;
+               on more than one card, equal to the 1-rank fid within 1e-3).
+               On a one-card machine, then world 2 on cuda:0 over gloo: the
+               collectives the port runs tried on CUDA tensors (a refusal is
+               printed and leaves the cross-rank checks to the CPU tests);
+               if none is refused, the flagship's ray-sharded frame at B=3
+               against G.synthesis (<= 1 uint8 level, K1 once per rank) and a
+               tiny fp32 GAN step (R1, PL, ADA 0.3) at global batch 4 against
+               the step without a group: Adam's moments within 1e-4 x each
+               tensor's max, the parameters within 1e-5 x max where the
+               gradient is above 1e-3 of its tensor's max, K1 (2, 3, 1) per
+               rank, the replicas bit-equal. A rank that fails fails the run.
 Then one JSON line with the kernels, and last {"ok": true, "device": {...}}.
 In that line K1's `ms` and `plain_ms` are device times per call at B=3 from
 the CUDA graphs; `eager_ms` is the time between CUDA events around one eager
@@ -263,7 +296,11 @@ backward's `design` names the PR of its design, `plan` the launch plan of the
 timed shape, `streamed_ms` the streamed plan's graph time on the same inputs
 with gg_a misaligned. Phase 15 adds `tools_launches` (per tool run) and
 `tools_max_abs_err` (the eval tool's batch-8 inputs) to K1's entry; K1's
-`max_abs_err` also takes phase 15's.
+`max_abs_err` also takes phase 15's. Phase 16 adds `parallel_launches` to
+the three entries (per path, a list of the ranks' counts, and the world
+size), `parallel_max_abs_err` (each rank-0 sharded frame's K1 inputs through
+kernel and plain) to K1's and `parallel_step_ms` (the medians of the
+data-parallel and the plain step in turns) to the backward's.
 """
 
 from __future__ import annotations
@@ -1314,7 +1351,7 @@ def offline_video(snap: str, mode: str, out: str, smi: str, label: str) -> dict:
           f"4096, 96+96, 52), max abs err {k1_err:.3g}; wrote {os.path.basename(res['path'])} "
           f"({smi})", flush=True)
     return {"launches": launches, "ms_per_frame": ms, "fps": 1e3 / ms, "peak_gib": peak_gib,
-            "frame0_err": err, "k1_err": k1_err}
+            "frame0_err": err, "k1_err": k1_err, "frames": np.stack(frames)}
 
 
 def fp32_copy(G, device: str):
@@ -4464,6 +4501,535 @@ def phase_tools(smi: str) -> dict:
     return {"eval": ev, "demo": demo, "import": imp, "wall_s": wall}
 
 
+# Phase 16: data parallelism. The ranks are processes of their own, started
+# with torch.multiprocessing.spawn at world size torch.cuda.device_count()
+# over NCCL; each runs the paths as torchrun's ranks run them (RANK,
+# WORLD_SIZE, LOCAL_RANK and a fresh MASTER_PORT a call), writes its
+# readings to a JSON file, and the parent checks them.
+PAR_FRAME_SEEDS = (0, 1, 2)
+PAR_ADA_P = 0.2
+PAR_TURNS = ("plain", "dp", "dp", "plain") * 2
+PAR_METRIC_ITEMS, PAR_METRIC_BATCH = 64, 8
+# World 2 on one card against one process, the tiny fp32 step: Adam's moments
+# (the averaged gradients) within GLOO_MOMENT_TOL of each tensor's max (the
+# ranks' batch of 2 against one process's 4 sums in another order: 5.4e-5 read
+# on an H100; on the CPU the same gaps fall to float64 rounding in float64,
+# tests/test_torch_parallel_float64.py). The parameters, from equal weights:
+# their gap must be the gap of Adam's first updates made of the two runs' own
+# moments, within 1e-5 of each tensor's max, for every element (a step moves
+# an element by about lr * sign(g), and by lr * g / (|g| + eps) near eps, so
+# a moment gap moves the elements whose |g| lies within it, or near eps, by up
+# to 2 lr: 1.2e-4 of max read where the raw gap was held; PR 15's call 4).
+GLOO_MOMENT_TOL = 5e-4
+
+
+def _adam_first_update(opt, p) -> torch.Tensor:
+    """Adam's first update of p (torch's formula, float64) from its moments."""
+    group, st = opt.param_groups[0], opt.state[p]
+    (b1, b2), eps = group["betas"], group["eps"]
+    m, v = st["exp_avg"].double() / (1 - b1), st["exp_avg_sq"].double() / (1 - b2)
+    return group["lr"] * m / (v.sqrt() + eps)
+
+
+@torch.no_grad()
+def step_gap(a, b) -> dict:
+    """Two GanTrainStates after one step from equal weights: the largest gap
+    of Adam's moments, of the parameters, and of the parameters less the gap
+    of Adam's first updates of each state's own moments, each relative to its
+    tensor's max."""
+    mom = raw = par = 0.0
+    for net, opt in (("G", "opt_g"), ("D", "opt_d")):
+        oa, ob = getattr(a, opt), getattr(b, opt)
+        for pa, pb in zip(getattr(a, net).parameters(), getattr(b, net).parameters()):
+            for k in ("exp_avg", "exp_avg_sq"):
+                ref = ob.state[pb][k].abs().max().clamp_min(1e-30)
+                mom = max(mom, float((oa.state[pa][k] - ob.state[pb][k]).abs().max() / ref))
+            scale = pb.abs().max().clamp_min(1e-30)
+            gap = pa.double() - pb.double()
+            raw = max(raw, float(gap.abs().max() / scale))
+            unexplained = gap + _adam_first_update(oa, pa) - _adam_first_update(ob, pb)
+            par = max(par, float(unexplained.abs().max() / scale))
+    return {"moments": mom, "params_raw": raw, "params": par}
+
+
+def _par_env(rank: int, world: int, port: int) -> None:
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+
+
+def _captured_k1():
+    """(capture list, spy): the spy keeps the first K1 call's inputs."""
+    from ide3d_tpu_torch.ops import ray_march
+
+    kept = []
+
+    def spy(*args, **kw):
+        if not kept:
+            kept.append((args, kw))
+        return ray_march.sort_integrate(*args, **kw)
+
+    return kept, spy
+
+
+def par_frames(group, snaps: dict) -> dict:
+    """The ray-sharded frame of each snapshot's G at B=1 and 3 against
+    G.synthesis on the same card: max abs err, uint8 levels, this rank's K1
+    launches and the shape of its K1 input, that input through kernel and
+    plain, and the frame's event ms beside G.synthesis's (B=3)."""
+    from ide3d_tpu_torch.apps import common, gen_images
+    from ide3d_tpu_torch.ops import ray_march
+    from ide3d_tpu_torch.parallel import mesh
+    from ide3d_tpu_torch.parallel.render import make_ray_sharded_frame
+    from ide3d_tpu_torch.render import renderer
+
+    out = {}
+    cams = gen_images.yaw_cameras(group.device)
+    for name, snap in snaps.items():
+        G = common.load_generator(snap, group.device)
+        mesh.replicate(group, G)
+        frame = make_ray_sharded_frame(G.synthesis, group)
+        for B in (1, 3):
+            z = torch.as_tensor(np.stack([np.random.RandomState(s).randn(G.z_dim)
+                                          for s in PAR_FRAME_SEEDS[:B]]), dtype=torch.float32,
+                                device=group.device)
+            c = cams[:B].contiguous()
+            with torch.inference_mode():
+                ws = G.mapping(z, c)
+            kept, spy = _captured_k1()
+            renderer.sort_integrate = spy
+            try:
+                torch.cuda.synchronize()
+                zero_k1_counts()
+                img, seg = frame(ws, c)
+                torch.cuda.synchronize()
+                launches = k1_counts()
+            finally:
+                renderer.sort_integrate = ray_march.sort_integrate
+            with torch.inference_mode():
+                ref_img, ref_seg = G.synthesis(ws, c, return_seg=True)
+            _check_finite(f"sharded frame {name} B={B}", [img, seg])
+            u8 = lambda x: torch.round((x + 1) * 127.5).clamp(0, 255).to(torch.int32)
+            (args, kw), = kept
+            with torch.inference_mode():
+                k1_err = max_err(ray_march.sort_integrate(*args, **kw),
+                                 ray_march.sort_integrate_plain(*args, **kw))
+            rec = {"err": max(max_err([img], [ref_img]), max_err([seg], [ref_seg])),
+                   "levels": int((u8(img) - u8(ref_img)).abs().max()),
+                   "launches": launches, "k1_shape": list(args[1].shape), "k1_err": k1_err}
+            del args, kw, kept
+            if B == 3:
+                rec["ms"] = event_median_ms(lambda: frame(ws, c))
+                with torch.inference_mode():
+                    rec["synthesis_ms"] = event_median_ms(
+                        lambda: G.synthesis(ws, c, return_seg=True))
+            out[f"{name}_b{B}"] = rec
+        del G, frame
+        torch.cuda.empty_cache()
+    return out
+
+
+def par_step_ms(group) -> dict:
+    """The flagship train step at global batch 4 (bf16, ada_p 0.2, no R1):
+    make_gan_train_step without a group (the plain step, on this rank's
+    process alone: no collective, no flat gradient buffer, no row gather, as
+    before the data-parallel layer) and with the group, on one state, in
+    turns (PAR_TURNS; every rank runs each data-parallel turn, rank 0 the
+    plain ones): event ms and K1 counts of each."""
+    from ide3d_tpu_torch.models.discriminator import Discriminator, DiscriminatorConfig
+    from ide3d_tpu_torch.models.generator import GeneratorConfig, Ide3dGenerator
+    from ide3d_tpu_torch.parallel import mesh
+    from ide3d_tpu_torch.train import gan
+
+    B, cfg = 4, GeneratorConfig()
+    tcfg = gan.GanTrainConfig(r1_gamma=0.0002 * cfg.img_resolution**2 / B)
+    G = Ide3dGenerator(cfg).init(seed=0).to(group.device)
+    D = Discriminator(DiscriminatorConfig(img_channels=gan.d_input_channels(tcfg, cfg)))
+    state = gan.init_gan_state(G, D.init(1).to(group.device), tcfg)
+    steps = {"plain": gan.make_gan_train_step(tcfg), "dp": gan.make_gan_train_step(tcfg, group)}
+    full = synthetic_batch(B, cfg.img_resolution, seed=0)
+    batches = {"plain": full, "dp": mesh.shard_batch(group, full)}
+    gen = torch.Generator(device=group.device).manual_seed(0)
+    ms = {"plain": [], "dp": []}
+    launches = {}
+    for i, kind in enumerate(("plain", "dp") + PAR_TURNS):
+        if kind == "plain" and not group.is_main:
+            continue
+        _, t, counts, _ = _timed_step(steps[kind], state, batches[kind], gen, PAR_ADA_P, at=1 + i)
+        if i >= 2:
+            ms[kind].append(t)
+        launches[kind] = counts
+    del state, G, D
+    torch.cuda.empty_cache()
+    return {"ms": ms, "launches": launches}
+
+
+def par_rank(index: int, world: int, port0: int, root: str, paths: dict) -> None:
+    """One rank of phase 16: every path under the group, readings to
+    root/rank<index>.json."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from ide3d_tpu_torch.apps import calc_metrics, common, gen_images, train_gan, \
+        train_hybrid_encoder
+    from ide3d_tpu_torch.io.checkpoint import load_checkpoint
+    from ide3d_tpu_torch.parallel import mesh
+
+    port = iter(range(port0, port0 + 100))
+    res = {}
+
+    def under_group(fn, *args):
+        _par_env(index, world, next(port))
+        return mesh.launch(fn, world, "cuda", *args)
+
+    t0 = time.perf_counter()
+    res["frames"] = under_group(par_frames, {"flagship": paths["flagship"],
+                                             "hybrid": paths["hybrid"]})
+    res["frames_s"] = time.perf_counter() - t0
+    from ide3d_tpu_torch.apps import gen_videos
+
+    # gen_videos: phase 8's flagship video, each chunk split over the ranks.
+    written, real = [], common.write_video
+    common.write_video = lambda path, frames, fps=24: written.append(frames) or real(
+        path, frames, fps)
+    try:
+        _par_env(index, world, next(port))
+        torch.cuda.synchronize()
+        zero_k1_counts()
+        t0 = time.perf_counter()
+        vid = gen_videos.main(["--network", paths["flagship"], *VIDEO_ARGS, "--image-mode",
+                               "image_seg", "--output", os.path.join(root, "par.mp4")])
+        res["video"] = {"launches": k1_counts(), "s": time.perf_counter() - t0,
+                        "ms_per_frame": vid["ms_per_frame"] if vid else None}
+    finally:
+        common.write_video = real
+    if index == 0:
+        np.save(os.path.join(root, "par_video.npy"), np.stack(written[0]))
+
+    # train_gan --pl-weight 2: 2 steps, a snapshot, and --resume of it.
+    common_args = ["--data", paths["img"], "--seg", paths["seg"], "--preset", "full", "--batch",
+                   "4", "--kimg", "0.008", "--pl-weight", "2", "--fixed-ada-p", str(PAR_ADA_P),
+                   "--device", "cuda"]
+    run, resumed = os.path.join(root, "run"), os.path.join(root, "resumed")
+    _par_env(index, world, next(port))
+    torch.cuda.synchronize()
+    zero_k1_counts()
+    t0 = time.perf_counter()
+    first = train_gan.main(common_args + ["--outdir", run])
+    torch.cuda.synchronize()
+    res["train_gan"] = {"launches": k1_counts(), "s": time.perf_counter() - t0}
+    _par_env(index, world, next(port))
+    again = train_gan.main(common_args + ["--outdir", resumed, "--resume",
+                                          os.path.join(run, "snapshot-final")])
+    if index == 0:
+        saved, meta = load_checkpoint(os.path.join(run, "snapshot-final"))
+        for name in ("G", "D", "G_ema", "opt_g", "opt_d"):
+            _same_state(saved[name], getattr(again, name).state_dict(), name)
+            _same_state(getattr(first, name).state_dict(), getattr(again, name).state_dict(), name)
+        if first.step != 2 or again.step != 2 or meta["step"] != 2 or not float(first.pl_mean) > 0:
+            raise RuntimeError(f"train_gan: steps {first.step}, {again.step}, pl_mean "
+                               f"{float(first.pl_mean)}")
+        res["train_gan"]["pl_mean"] = float(first.pl_mean)
+    del first, again
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    res["step"] = under_group(par_step_ms)
+    res["step"]["s"] = time.perf_counter() - t0
+
+    # train_hybrid_encoder: 2 steps, both branches, no loss networks.
+    _par_env(index, world, next(port))
+    torch.cuda.synchronize()
+    zero_k1_counts()
+    t0 = time.perf_counter()
+    enc = train_hybrid_encoder.main(["--network", paths["flagship"], "--data", paths["img"],
+                                     "--seg", paths["seg"], "--outdir",
+                                     os.path.join(root, "enc"), "--batch", "4", "--max-steps",
+                                     "2", "--snap", "2", "--device", "cuda"])
+    torch.cuda.synchronize()
+    res["encoder"] = {"launches": k1_counts(), "s": time.perf_counter() - t0,
+                      "step": enc.step if enc is not None else None}
+    del enc
+    torch.cuda.empty_cache()
+
+    # calc_metrics fid on 64 items with --mesh-devices world.
+    _par_env(index, world, next(port))
+    zero_k1_counts()
+    t0 = time.perf_counter()
+    recs = calc_metrics.main(["--network", paths["flagship"], "--data", paths["metric_img"],
+                              "--metrics", "fid", "--detector", "pixel", "--num-items",
+                              str(PAR_METRIC_ITEMS), "--batch", str(PAR_METRIC_BATCH),
+                              "--mesh-devices", str(world), "--device", "cuda",
+                              "--cache-dir", os.path.join(root, "metric_cache")])
+    res["metrics"] = {"launches": k1_counts(), "s": time.perf_counter() - t0,
+                      "fid": recs[0]["results"]["fid"] if recs else None}
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        os.environ.pop(k, None)
+    with open(os.path.join(root, f"rank{index}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+# Collectives the port runs, tried on CUDA tensors over gloo before the
+# world-2 checks on one card.
+def _probe_gloo(group) -> dict:
+    """{collective: the first line of its error} for each one gloo refuses."""
+    import torch.distributed as dist
+
+    t = torch.ones(4, device=group.device)
+    probes = {"all_reduce": lambda: dist.all_reduce(t.clone()),
+              "all_gather": lambda: dist.all_gather([torch.empty_like(t) for _ in range(2)], t),
+              "broadcast": lambda: dist.broadcast(t.clone(), src=0)}
+    refused = {}
+    for name, fn in probes.items():
+        try:
+            fn()
+        except (RuntimeError, ValueError) as e:  # the probe reports it; no check replaces it
+            refused[name] = str(e).splitlines()[0][:200]
+    torch.cuda.synchronize()
+    return refused
+
+
+def gloo_rank(index: int, init_method: str, root: str, snap: str) -> None:
+    """World 2 on cuda:0 over gloo: the probe, then (if nothing was refused)
+    the flagship's ray-sharded frame against G.synthesis and a tiny fp32 GAN
+    step (R1, PL, ADA 0.3) at global batch 4 against the same step without a
+    group, with K1 counted on each rank."""
+    import torch.distributed as dist
+
+    from ide3d_tpu_torch.apps import common, gen_images
+    from ide3d_tpu_torch.apps.common import PRESETS
+    from ide3d_tpu_torch.models.discriminator import Discriminator, DiscriminatorConfig
+    from ide3d_tpu_torch.models.generator import Ide3dGenerator
+    from ide3d_tpu_torch.parallel import mesh
+    from ide3d_tpu_torch.parallel.render import make_ray_sharded_frame
+    from ide3d_tpu_torch.train import gan
+    from ide3d_tpu_torch.utils.profiling import check_replica_consistency
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=init_method, rank=index, world_size=2)
+    group = mesh.Group(rank=index, size=2, device=torch.device("cuda", 0), backend="gloo")
+    res = {"refused": _probe_gloo(group)}
+    try:
+        if res["refused"]:
+            return
+        G = common.load_generator(snap, group.device)
+        cams = gen_images.yaw_cameras(group.device)
+        z = torch.as_tensor(np.stack([np.random.RandomState(s).randn(G.z_dim)
+                                      for s in PAR_FRAME_SEEDS]), dtype=torch.float32,
+                            device=group.device)
+        with torch.inference_mode():
+            ws = G.mapping(z, cams)
+            ref_img, ref_seg = G.synthesis(ws, cams, return_seg=True)
+        zero_k1_counts()
+        img, seg = make_ray_sharded_frame(G.synthesis, group)(ws, cams)
+        torch.cuda.synchronize()
+        u8 = lambda x: torch.round((x + 1) * 127.5).clamp(0, 255).to(torch.int32)
+        res["frame"] = {"launches": k1_counts(),
+                        "err": max(max_err([img], [ref_img]), max_err([seg], [ref_seg])),
+                        "levels": int((u8(img) - u8(ref_img)).abs().max())}
+        del G
+        torch.cuda.empty_cache()
+
+        def tiny_state(tcfg):
+            G = Ide3dGenerator(PRESETS["tiny"]).init(0).to(group.device)
+            D = Discriminator(DiscriminatorConfig(img_resolution=32, img_channels=25,
+                                                  channel_base=512, channel_max=32,
+                                                  dtype="float32")).init(1).to(group.device)
+            return gan.init_gan_state(G, D, tcfg)
+
+        tcfg = gan.GanTrainConfig(r1_interval=1, pl_weight=2.0)
+        rng = np.random.RandomState(0)
+        full = {"img": torch.from_numpy(rng.randint(0, 256, (4, 32, 32, 3), np.uint8)).cuda(),
+                "seg": torch.from_numpy(rng.randint(0, 19, (4, 32, 32), np.uint8)).cuda(),
+                "c": cams[torch.arange(4) % 3].contiguous()}
+        dp, one = tiny_state(tcfg), tiny_state(tcfg)
+        zero_k1_counts()
+        gan.make_gan_train_step(tcfg, group)(dp, mesh.shard_batch(group, full),
+                                             torch.Generator("cuda").manual_seed(1), 0.3)
+        torch.cuda.synchronize()
+        launches = k1_counts()
+        gan.make_gan_train_step(tcfg)(one, full, torch.Generator("cuda").manual_seed(1), 0.3)
+        res["step"] = {"launches": launches, "rel_err": step_gap(dp, one),
+                       "pl_mean": [float(dp.pl_mean), float(one.pl_mean)],
+                       "replicas_equal": check_replica_consistency(group, dp.G, dp.D, dp.G_ema)}
+    finally:
+        with open(os.path.join(root, f"gloo{index}.json"), "w") as f:
+            json.dump(res, f)
+        dist.destroy_process_group()
+
+
+def parallel_launches(dp: dict, i: int) -> dict:
+    """Phase 16's counts of K1's forward (i=0), backward (1) or double
+    backward (2), per rank (a list in rank order) for each path."""
+    ranks = dp["ranks"]
+    out = {k: [r["frames"][k]["launches"][i] for r in ranks] for k in ranks[0]["frames"]}
+    out.update({k: [r[k]["launches"][i] for r in ranks]
+                for k in ("video", "train_gan", "encoder", "metrics")})
+    out["dp_step"] = [r["step"]["launches"]["dp"][i] for r in ranks]
+    out["world"] = dp["world"]
+    if dp["gloo"] and "frame" in dp["gloo"][0]:
+        out["gloo_world2_on_one_card"] = {"frame_b3": [g["frame"]["launches"][i]
+                                                       for g in dp["gloo"]],
+                                          "tiny_pl_step": [g["step"]["launches"][i]
+                                                           for g in dp["gloo"]]}
+    return out
+
+
+def phase_parallel(smi: str, video_frames: np.ndarray) -> dict:
+    """Phase 16 (see the module's docstring)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from ide3d_tpu_torch.models.generator import GeneratorConfig
+
+    world = torch.cuda.device_count()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        paths = {"flagship": os.path.join(root, "flagship"), "hybrid": os.path.join(root, "hybrid")}
+        write_snapshot(paths["flagship"], GeneratorConfig(), seed=0)  # phase 8's video G
+        write_snapshot(paths["hybrid"], GeneratorConfig(use_feature_volume=True), seed=0)
+        data = os.path.join(root, "sphere")
+        subprocess.run([sys.executable, "tools/torch_make_synthetic_dataset.py", "--out", data,
+                        "--identities", "4", "--views", "2", "--resolution", "512"],
+                       check=True, capture_output=True, text=True, timeout=300)
+        paths["img"], paths["seg"] = os.path.join(data, "img"), os.path.join(data, "seg")
+        paths["metric_img"], _ = write_dataset(os.path.join(root, "metric"), PAR_METRIC_ITEMS,
+                                               512)
+        inputs_s = time.perf_counter() - t_phase
+        t0 = time.perf_counter()
+        mp.spawn(par_rank, args=(world, _free_port(), root, paths), nprocs=world, join=True)
+        ranks_s = time.perf_counter() - t0
+        ranks = [json.load(open(os.path.join(root, f"rank{r}.json"))) for r in range(world)]
+        par_frames_video = np.load(os.path.join(root, "par_video.npy"))
+        fid = ranks[0]["metrics"]["fid"]
+        fid_1 = fid  # world 1: the group's run is the 1-rank run
+        if world > 1:
+            from ide3d_tpu_torch.apps import calc_metrics
+
+            fid_1 = calc_metrics.main([
+                "--network", paths["flagship"], "--data", paths["metric_img"], "--metrics", "fid",
+                "--detector", "pixel", "--num-items", str(PAR_METRIC_ITEMS), "--batch",
+                str(PAR_METRIC_BATCH), "--device", "cuda",
+                "--cache-dir", os.path.join(root, "metric_cache_1")])[0]["results"]["fid"]
+
+        gloo = None
+        if world == 1:
+            t0 = time.perf_counter()
+            init = "file://" + os.path.join(root, "gloo_store")
+            mp.spawn(gloo_rank, args=(init, root, paths["flagship"]), nprocs=2, join=True)
+            gloo = [json.load(open(os.path.join(root, f"gloo{r}.json"))) for r in range(2)]
+            gloo_s = time.perf_counter() - t0
+
+    # The checks, rank by rank.
+    for r, res in enumerate(ranks):
+        for key, rec in res["frames"].items():
+            B = int(key[-1])
+            if rec["launches"] != [1, 0, 0] or rec["k1_shape"][:2] != [B, 4096 // world]:
+                raise RuntimeError(f"parallel rank {r} {key}: K1 {rec['launches']} on "
+                                   f"{rec['k1_shape']}")
+            if rec["k1_err"] > 1e-3 or rec["levels"] > 1:
+                raise RuntimeError(f"parallel rank {r} {key}: K1 vs plain {rec['k1_err']}, "
+                                   f"{rec['levels']} uint8 levels from G.synthesis")
+        if res["video"]["launches"] != [VIDEO_FRAMES // VIDEO_CHUNK, 0, 0]:
+            raise RuntimeError(f"parallel rank {r}: gen_videos K1 {res['video']['launches']}")
+        want = [4 if r == 0 else 3, 4, 1]  # a PL step, a plain one, rank 0's grid
+        if res["train_gan"]["launches"] != want:
+            raise RuntimeError(f"parallel rank {r}: train_gan K1 {res['train_gan']['launches']}, "
+                               f"want {want}")
+        if res["encoder"]["launches"] != [6, 4, 0]:
+            raise RuntimeError(f"parallel rank {r}: train_hybrid_encoder K1 "
+                               f"{res['encoder']['launches']}, want [6, 4, 0]")
+        if res["metrics"]["launches"] != [PAR_METRIC_ITEMS // PAR_METRIC_BATCH, 0, 0]:
+            raise RuntimeError(f"parallel rank {r}: calc_metrics K1 {res['metrics']['launches']}")
+        if res["step"]["launches"]["dp"] != [1, 1, 0]:
+            raise RuntimeError(f"parallel rank {r}: DP step K1 {res['step']['launches']}")
+    if world > 1 and not np.isclose(fid, fid_1, rtol=1e-3):
+        raise RuntimeError(f"parallel calc_metrics fid {fid} at world {world}, {fid_1} at 1")
+    if par_frames_video.shape != video_frames.shape or not np.array_equal(par_frames_video,
+                                                                          video_frames):
+        diff = (np.abs(par_frames_video.astype(np.int32) - video_frames.astype(np.int32)).max()
+                if par_frames_video.shape == video_frames.shape else "shape")
+        raise RuntimeError(f"parallel gen_videos: frames differ from phase 8's by {diff}")
+    r0 = ranks[0]
+    if not np.isfinite(fid):
+        raise RuntimeError(f"parallel calc_metrics fid {fid}")
+    step = r0["step"]["ms"]
+    dp_ms, plain_ms = statistics.median(step["dp"]), statistics.median(step["plain"])
+    frames = {k: {kk: v[kk] for kk in ("err", "levels", "k1_err")} for k, v in r0["frames"].items()}
+    parts = {"frames": r0["frames_s"], **{k: r0[k]["s"] for k in ("video", "train_gan", "step",
+                                                                   "encoder", "metrics")}}
+    print(f"parallel: world {world} over NCCL ({smi}); inputs {inputs_s:.1f} s, ranks "
+          f"{ranks_s:.1f} s (start, imports and every path; rank 0's paths "
+          f"{ {k: round(v, 1) for k, v in parts.items()} } s); ray-sharded frame vs G.synthesis "
+          f"per rank {frames}; B=3 frame {r0['frames']['flagship_b3']['ms']:.3f} ms vs "
+          f"G.synthesis {r0['frames']['flagship_b3']['synthesis_ms']:.3f} ms (hybrid "
+          f"{r0['frames']['hybrid_b3']['ms']:.3f} vs {r0['frames']['hybrid_b3']['synthesis_ms']:.3f}); "
+          f"K1 per rank: frame (1, 0, 0) on (B, {4096 // world}, 96, 52), video "
+          f"{r0['video']['launches']} (every uint8 frame equal to phase 8's), train_gan "
+          f"--pl-weight 2 2 steps {[res['train_gan']['launches'] for res in ranks]} in "
+          f"{r0['train_gan']['s']:.1f} s (replicas checked at the snapshot; --resume restored "
+          f"every state dict), train_hybrid_encoder 2 steps {r0['encoder']['launches']} in "
+          f"{r0['encoder']['s']:.1f} s, calc_metrics fid {PAR_METRIC_ITEMS} items --mesh-devices "
+          f"{world} {r0['metrics']['launches']} in {r0['metrics']['s']:.1f} s: fid {fid:.6g} "
+          f"(1-rank {fid_1:.6g}); train step batch 4 in turns: plain {step['plain']} ms "
+          f"(median {plain_ms:.3f}), data-parallel {step['dp']} ms (median {dp_ms:.3f}, "
+          f"{dp_ms - plain_ms:+.3f} ms)", flush=True)
+    out = {"world": world, "ranks": ranks, "dp_ms": dp_ms, "plain_ms": plain_ms,
+           "inputs_s": inputs_s, "ranks_s": ranks_s, "gloo": None}
+    if gloo is not None:
+        refused = gloo[0]["refused"]
+        if refused:
+            print(f"parallel: world 2 on cuda:0 over gloo: refused {refused}; the cross-rank "
+                  f"checks are left to the CPU tests (tests/test_torch_parallel.py)", flush=True)
+        else:
+            for r, g in enumerate(gloo):
+                if g["frame"]["launches"] != [1, 0, 0] or g["frame"]["levels"] > 1:
+                    raise RuntimeError(f"gloo rank {r}: frame {g['frame']}")
+                if g["step"]["launches"] != [2, 3, 1]:  # a PL step
+                    raise RuntimeError(f"gloo rank {r}: step K1 {g['step']['launches']}, "
+                                       f"want [2, 3, 1]")
+                gap = g["step"]["rel_err"]
+                if not g["step"]["replicas_equal"] or not gap["moments"] <= GLOO_MOMENT_TOL \
+                        or not gap["params"] <= 1e-5:
+                    raise RuntimeError(f"gloo rank {r}: step {g['step']}")
+            print(f"parallel: world 2 on cuda:0 over gloo in {gloo_s:.1f} s: ray-sharded flagship "
+                  f"frame B=3 vs G.synthesis {[g['frame'] for g in gloo]}; tiny fp32 GAN step "
+                  f"(R1, PL, ADA 0.3) at global batch 4 vs one process, relative to each "
+                  f"tensor's max (params: less Adam's update gap) {gloo[0]['step']['rel_err']}, "
+                  f"pl_mean {gloo[0]['step']['pl_mean']}, K1 per rank "
+                  f"{[g['step']['launches'] for g in gloo]}, replicas equal", flush=True)
+        out["gloo"] = gloo
+    wall = time.perf_counter() - t_phase
+    print(f"parallel: phase 16 in {wall:.1f} s", flush=True)
+    out["wall_s"] = wall
+    return out
+
+
+def phase16_alone() -> dict:
+    """Phase 16 on its own (device, build, phase 8's flagship video as its
+    reference): `python3 -c "import chip_smoke as cs; cs.phase16_alone()"`."""
+    import tempfile
+
+    from ide3d_tpu_torch.models.generator import GeneratorConfig
+
+    smi = phase_device()
+    phase_build()
+    with tempfile.TemporaryDirectory() as root:
+        snap = os.path.join(root, "flagship")
+        write_snapshot(snap, GeneratorConfig(), seed=0)
+        video = offline_video(snap, "image_seg", os.path.join(root, "f.mp4"), smi,
+                              "flagship snapshot")
+    return phase_parallel(smi.splitlines()[0], video.pop("frames"))
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
@@ -4481,6 +5047,8 @@ def main() -> None:
     arch = phase_arch(smi.splitlines()[0])
     par = phase_parity(smi.splitlines()[0])
     tools = phase_tools(smi.splitlines()[0])
+    dp = phase_parallel(smi.splitlines()[0], off["video"]["flagship"].pop("frames"))
+    off["video"]["ref_compat"].pop("frames")
     main_path, b1 = k["timing"][3], k["timing"][1]  # the frame runs K1 at B=3
     kb = tr["k1_backward"]
     kd = par["k1_double_backward"]
@@ -4536,6 +5104,8 @@ def main() -> None:
             ("eval_trained_encoder", "eval"), ("painter_trained_demo", "demo"),
             ("import_and_verify", "import"))},
         "tools_max_abs_err": {"eval_trained_encoder_b8": tools["eval"]["k1_err"]},
+        "parallel_launches": parallel_launches(dp, 0),
+        "parallel_max_abs_err": {k: v["k1_err"] for k, v in dp["ranks"][0]["frames"].items()},
     }, {
         "name": "sort_integrate_backward",
         "route": "cuda",
@@ -4567,6 +5137,8 @@ def main() -> None:
         "arch_launches": arch_launches(arch, 1),
         "parity_launches": {"pl_step": par["full"]["pl_step_launches"][1],
                             "plain_step": par["full"]["plain_step_launches"][1]},
+        "parallel_launches": parallel_launches(dp, 1),
+        "parallel_step_ms": {"data_parallel": dp["dp_ms"], "plain": dp["plain_ms"]},
     }, {
         "name": "sort_integrate_double_backward",
         "route": "cuda",
@@ -4594,6 +5166,7 @@ def main() -> None:
                        "plain_peak_gib": par["full"]["plain_peak_gib"],
                        "wavelet_ms": par["full"]["warp"],
                        "wavelet_peak_gib": par["full"]["warp_peak_gib"]},
+        "parallel_launches": parallel_launches(dp, 2),
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -11,17 +11,22 @@ pose); modes image | image_seg | image_depth put the colorized seg or the
 shaded depth beside each image. Frames go frame-major, then tile by tile in
 raster order.
 
-Each chunk of `--chunk` frames renders as one batch through G.synthesis (one
-K1 launch per chunk), and the uint8 image, the seg colours and the depth
-(normalized per frame, resized bilinearly) are made on the device. The host
-copy of chunk i (pinned memory, non-blocking) overlaps the rendering of chunk
-i+1. `main` returns {"path", "frames", "ms_per_frame"}, the last timed around
-the chunk loop (CUDA events on the card).
+Each chunk of `--chunk` frames is split over the ranks of a data-parallel
+group (parallel/render.make_frame_sharded_chunks): every visible card, or
+torchrun's world; the chunk must divide by the world size, as in the JAX
+package. A rank renders its frames as one batch through G.synthesis (one K1
+launch per chunk and rank) and makes the uint8 image, the seg colours and the
+depth (normalized per frame, resized bilinearly) on its card; the frames are
+gathered in order and rank 0 writes the video. Rank 0's host copy of chunk i
+(pinned memory, non-blocking) overlaps the rendering of chunk i+1. `main`
+returns rank 0's {"path", "frames", "ms_per_frame"}, the last timed around
+the chunk loop (CUDA events on the card), or None where it started the ranks.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import math
 import os
 import time
@@ -30,6 +35,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel import mesh
+from ..parallel.render import make_frame_sharded_chunks
 from ..render.camera import CANONICAL_POSE_25, look_at_pose, make_label_25
 from ..render.renderer import RenderParams
 from ..utils.seg import mask2color
@@ -93,28 +100,32 @@ def post(out: dict, image_mode: str, R: int):
 
 
 def render_chunks(G, work_ws: np.ndarray, work_cs: np.ndarray, rp: RenderParams,
-                  image_mode: str, chunk: int, device: torch.device | str = "cuda") -> list:
+                  image_mode: str, chunk: int, device: torch.device | str = "cuda",
+                  group: mesh.Group | None = None) -> list:
     """Every frame of the work list as uint8 tiles [R, R or 2R, 3], rendered
-    `chunk` at a time; the host copy of one chunk overlaps the next's rendering."""
+    `chunk` at a time with each chunk's frames split over `group` (None: this
+    process alone); the host copy of one chunk overlaps the next's rendering.
+    Rank 0 gets the tiles, the other ranks an empty list."""
     dev = torch.device(device)
+    group = group or mesh.Group()
     R = G.cfg.img_resolution
     K = max(1, chunk)
     starts = list(range(0, len(work_ws), K))
     cuda = dev.type == "cuda"
+    chunk_fn = make_frame_sharded_chunks(
+        G.synthesis, functools.partial(post, image_mode=image_mode, R=R), group, rp)
 
     def launch(start):
         ws_k = torch.as_tensor(work_ws[start:start + K], device=dev)
         cs_k = torch.as_tensor(work_cs[start:start + K], device=dev)
-        with torch.inference_mode():
-            out = G.synthesis(ws_k, cs_k, render_params=rp, return_all=True)
-            pair = post(out, image_mode, R)
-            if not cuda:
-                return pair, None
-            host = [None if t is None else torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                    for t in pair]
-            for h, t in zip(host, pair):
-                if t is not None:
-                    h.copy_(t, non_blocking=True)
+        pair = chunk_fn(ws_k, cs_k)
+        if not group.is_main or not cuda:
+            return pair, None
+        host = [None if t is None else torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                for t in pair]
+        for h, t in zip(host, pair):
+            if t is not None:
+                h.copy_(t, non_blocking=True)
         done = torch.cuda.Event()
         done.record()
         return host, done
@@ -124,13 +135,15 @@ def render_chunks(G, work_ws: np.ndarray, work_cs: np.ndarray, rp: RenderParams,
     for si in range(len(starts)):
         nxt = launch(starts[si + 1]) if si + 1 < len(starts) else None
         (img8, ex8), done = pending
+        pending = nxt
+        if not group.is_main:
+            continue
         if done is not None:
             done.synchronize()
         img8 = img8.numpy()
         ex8 = None if ex8 is None else ex8.numpy()
         for i in range(img8.shape[0]):
             tiles.append(img8[i] if ex8 is None else np.concatenate([img8[i], ex8[i]], axis=1))
-        pending = nxt
     return tiles
 
 
@@ -152,11 +165,16 @@ def main(argv=None):
     ap.add_argument("--output", required=True)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    device_type = torch.device(args.device).type
+    return mesh.launch(_render, mesh.visible_world(device_type), device_type, args)
 
+
+def _render(group: mesh.Group, args):
     from .common import load_generator, parse_range, write_video
 
-    dev = torch.device(args.device)
+    dev = group.device
     G = load_generator(args.network, dev)
+    mesh.replicate(group, G)
     gw, gh = (int(x) for x in args.grid.split("x"))
     seeds = parse_range(args.seeds)
     num_keyframes = args.num_keyframes
@@ -172,13 +190,15 @@ def main(argv=None):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
     t0 = time.perf_counter()
-    tiles = render_chunks(G, work_ws, work_cs, rp, args.image_mode, args.chunk, dev)
+    tiles = render_chunks(G, work_ws, work_cs, rp, args.image_mode, args.chunk, dev, group)
     if dev.type == "cuda":
         end.record()
         end.synchronize()
         loop_ms = start.elapsed_time(end)
     else:
         loop_ms = (time.perf_counter() - t0) * 1e3
+    if not group.is_main:
+        return None
 
     frames = []
     per_frame = gh * gw

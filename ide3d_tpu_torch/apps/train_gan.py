@@ -4,16 +4,26 @@ Usage:
     python -m ide3d_tpu_torch.apps.train_gan --data imgs/ --seg segs/ --outdir runs/g0 \\
         --batch 4 --kimg 25000 [--resume runs/g0/snapshot-000200] [--device cuda]
 
-A StyleGAN2-ADA loop on one device (the card unless `--device cpu`): the
-compact uint8 loader, batches to the card through pinned memory, the G-first
-train step with lazy R1 (train/gan.py), the ADA p-controller fed from the
-steps' sign statistics read back every 4 steps, G_ema sample grids, snapshots
-(io/checkpoint.py) and interval means to stats.jsonl. `--resume` restores G,
-D, G_ema, both optimizers, pl_mean, the step and ada_p. `--metrics fid,kid`
-evaluates G_ema at every snapshot and at the end (once per kimg point) on the
-un-mirrored dataset, appending {"kimg", ...record} to metric-<name>.jsonl.
-`--pl-weight` turns on path-length regularization (every 4 steps) and
-`--wavelet-aa` the sym6 anti-aliased ADA warp.
+A data-parallel StyleGAN2-ADA loop (the cards unless `--device cpu`): one
+rank per card over NCCL (gloo on the CPU), as many as are visible (torchrun's
+world when it launched the process: `torchrun --nproc_per_node N -m
+ide3d_tpu_torch.apps.train_gan ...`), reduced to the largest world that
+divides --batch, as the JAX app's mesh; the ranks beyond it leave and exit 0.
+Each rank reads its rows of the global batch (the compact uint8 loader, copied
+to its card from pinned memory on a side stream, parallel/mesh.prefetch_to_device)
+and runs the G-first train step with lazy R1 (train/gan.py) with averaged
+gradients; the ADA p-controller is fed from the steps' sign statistics,
+averaged over the ranks and read back every 4 steps. Rank 0 writes the G_ema
+sample grids, the snapshots (io/checkpoint.py), the interval means of the
+global batch to stats.jsonl and the metrics; at every snapshot the ranks'
+G, D and G_ema are checked equal bit for bit. `--resume` (read by rank 0 and
+broadcast) restores G, D, G_ema, both optimizers, pl_mean, the step and
+ada_p. `--metrics fid,kid` evaluates G_ema at every snapshot and at the end
+(once per kimg point) on the un-mirrored dataset, split over the ranks,
+appending {"kimg", ...record} to metric-<name>.jsonl. `--pl-weight` turns on
+path-length regularization (every 4 steps) and `--wavelet-aa` the sym6
+anti-aliased ADA warp. `main` returns rank 0's training state (None where it
+started the ranks or left the group).
 """
 
 from __future__ import annotations
@@ -62,26 +72,39 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
+    import torch
+
+    from ..parallel import mesh
+
+    device_type = torch.device(args.device).type
+    return mesh.launch(_train, mesh.dp_world(args.batch, device_type), device_type, args)
+
+
+def _train(group, args):
     import numpy as np
     import torch
 
-    from ..data.dataset import CameraLabeledDataset, batch_to_device, infinite_loader
+    from ..data.dataset import CameraLabeledDataset, infinite_loader
     from ..io.checkpoint import load_checkpoint, save_checkpoint
     from ..models.discriminator import Discriminator, DiscriminatorConfig
     from ..models.generator import Ide3dGenerator
+    from ..parallel import mesh
     from ..parallel.stats import StatsAccumulator
     from ..render.camera import CANONICAL_POSE_25
     from ..train.augment import AdaState, AugmentConfig, ada_accumulate, ada_init, ada_update
     from ..train.gan import GanTrainConfig, d_input_channels, init_gan_state, make_gan_train_step
+    from ..utils.profiling import check_replica_consistency
     from ..utils.seg import mask2color
     from .common import PRESETS, save_image_grid
 
-    device = torch.device(args.device)
-    os.makedirs(args.outdir, exist_ok=True)
+    device, main_rank = group.device, group.is_main
+    log = print if main_rank else (lambda *a, **k: None)
+    if main_rank:
+        os.makedirs(args.outdir, exist_ok=True)
     gcfg = dataclasses.replace(PRESETS[args.preset], img_resolution=args.resolution)
     if args.r1_gamma is None:
         args.r1_gamma = 0.0002 * gcfg.img_resolution ** 2 / args.batch
-        print(f"r1-gamma (auto): {args.r1_gamma:.3g}")
+        log(f"r1-gamma (auto): {args.r1_gamma:.3g}")
     tcfg = GanTrainConfig(r1_gamma=args.r1_gamma, use_ada=not args.no_ada,
                           pl_weight=args.pl_weight, aug=AugmentConfig(wavelet_aa=args.wavelet_aa))
     G = Ide3dGenerator(gcfg).init(args.seed).to(device)
@@ -89,14 +112,17 @@ def main(argv=None):
                                           img_channels=d_input_channels(tcfg, gcfg)))
     D = D.init(args.seed + 1).to(device)
     state = init_gan_state(G, D, tcfg)
-    print(f"device: {device}; batch {args.batch}")
+    log(f"device: {device}; {group.size} rank(s) over {group.backend}; global batch {args.batch}")
 
     dataset = CameraLabeledDataset(args.data, args.seg, resolution=args.resolution, xflip=True)
-    loader = infinite_loader(dataset, args.batch, seed=args.seed)
+    loader = mesh.prefetch_to_device(
+        infinite_loader(dataset, args.batch, seed=args.seed, rank=group.rank,
+                        world_size=group.size), device)
 
     ada, ada_p = ada_init(), 0.0
     if args.resume:
-        saved, meta = load_checkpoint(args.resume, map_location=device)
+        saved, meta = load_checkpoint(args.resume) if main_rank else (None, None)
+        saved, meta = mesh.broadcast_tree(group, (saved, meta))
         for name, obj in (("G", state.G), ("D", state.D), ("G_ema", state.G_ema),
                           ("opt_g", state.opt_g), ("opt_d", state.opt_d)):
             obj.load_state_dict(saved[name])
@@ -104,11 +130,12 @@ def main(argv=None):
         state.step = int(meta.get("step", 0))
         ada_p = float(meta.get("ada_p", 0.0))
         ada = AdaState(p=ada_p, rt_accum=(0.0, 0.0))
+    mesh.replicate(group, state.G, state.D, state.G_ema)
     if args.fixed_ada_p is not None:
         ada_p = args.fixed_ada_p
-    step_fn = make_gan_train_step(tcfg)
+    step_fn = make_gan_train_step(tcfg, group)
     gen = torch.Generator(device=device).manual_seed(args.seed + 1)
-    acc = StatsAccumulator()
+    acc = StatsAccumulator(group)
 
     metric_names = [m.strip() for m in args.metrics.split(",") if m.strip()]
     metric_done = set()
@@ -128,11 +155,13 @@ def main(argv=None):
         for name in metric_names:
             rec = calc_metric(name, G=state.G_ema, dataset=metric_dataset, detector=met_det,
                               num_items=args.metric_items, batch_size=args.batch,
-                              cache_dir=os.path.join(args.outdir, ".metric_cache"), device=device)
-            line = {"kimg": kimg, **rec}
-            print(json.dumps(line, default=float))
-            with open(os.path.join(args.outdir, f"metric-{name}.jsonl"), "a") as f:
-                f.write(json.dumps(line, default=float) + "\n")
+                              cache_dir=os.path.join(args.outdir, ".metric_cache"), device=device,
+                              group=group)
+            if main_rank:
+                line = {"kimg": kimg, **rec}
+                print(json.dumps(line, default=float))
+                with open(os.path.join(args.outdir, f"metric-{name}.jsonl"), "a") as f:
+                    f.write(json.dumps(line, default=float) + "\n")
 
     grid_z = torch.as_tensor(np.random.RandomState(1).randn(16, gcfg.z_dim), dtype=torch.float32,
                              device=device)
@@ -147,11 +176,14 @@ def main(argv=None):
         save_image_grid(mask2color(seg).cpu().numpy() / 127.5 - 1.0, name + "_seg.png", grid=(4, 4))
 
     def save(name):
-        save_checkpoint(os.path.join(args.outdir, name),
-                        {"G": state.G.state_dict(), "D": state.D.state_dict(),
-                         "G_ema": state.G_ema.state_dict(), "opt_g": state.opt_g.state_dict(),
-                         "opt_d": state.opt_d.state_dict(), "pl_mean": state.pl_mean},
-                        config=gcfg, step=state.step, ada_p=ada_p)
+        if not check_replica_consistency(group, state.G, state.D, state.G_ema):
+            raise RuntimeError(f"{name}: the ranks' G, D or G_ema differ")
+        if main_rank:
+            save_checkpoint(os.path.join(args.outdir, name),
+                            {"G": state.G.state_dict(), "D": state.D.state_dict(),
+                             "G_ema": state.G_ema.state_dict(), "opt_g": state.opt_g.state_dict(),
+                             "opt_d": state.opt_d.state_dict(), "pl_mean": state.pl_mean},
+                            config=gcfg, step=state.step, ada_p=ada_p)
 
     cur_img = state.step * args.batch
     next_snap = cur_img + args.snap_kimg * 1000
@@ -160,8 +192,7 @@ def main(argv=None):
     sign_buf = []  # the steps' sign statistics, read back at the controller's update
 
     while cur_img < args.kimg * 1000:
-        batch = batch_to_device(next(loader), device)
-        state, stats = step_fn(state, batch, gen, ada_p)
+        state, stats = step_fn(state, next(loader), gen, ada_p)
         cur_img += args.batch
         acc.update(stats)
         if not args.no_ada and args.fixed_ada_p is None:
@@ -170,7 +201,7 @@ def main(argv=None):
             sign_buf.append(stats["real_signs"])
             if (cur_img // args.batch) % 4 == 0:
                 for s in sign_buf:
-                    ada = ada_accumulate(ada, float(s), args.batch)
+                    ada = ada_accumulate(ada, s, args.batch, group)
                 sign_buf.clear()
                 ada = ada_update(ada, args.batch * 4, target=args.ada_target,
                                  speed_kimg=args.ada_speed, p_max=args.ada_pmax)
@@ -180,11 +211,13 @@ def main(argv=None):
             line = {"kimg": cur_img / 1000, "time_h": (time.time() - t_start) / 3600,
                     "ada_p": ada_p, **{k: acc.mean(k) for k in sorted(stats)}}
             acc.reset()
-            print(json.dumps(line))
-            with open(os.path.join(args.outdir, "stats.jsonl"), "a") as f:
-                f.write(json.dumps(line) + "\n")
+            if main_rank:
+                print(json.dumps(line))
+                with open(os.path.join(args.outdir, "stats.jsonl"), "a") as f:
+                    f.write(json.dumps(line) + "\n")
         if cur_img >= next_grid:
-            save_grid(cur_img)
+            if main_rank:
+                save_grid(cur_img)
             next_grid = cur_img + args.grid_kimg * 1000
         if cur_img >= next_snap:
             save(f"snapshot-{cur_img // 1000:06d}")
@@ -193,14 +226,15 @@ def main(argv=None):
 
     if sign_buf:  # ended mid-window: the final ada_p reflects every step
         for s in sign_buf:
-            ada = ada_accumulate(ada, float(s), args.batch)
+            ada = ada_accumulate(ada, s, args.batch, group)
         ada = ada_update(ada, args.batch * len(sign_buf), target=args.ada_target,
                          speed_kimg=args.ada_speed, p_max=args.ada_pmax)
         ada_p = float(ada.p)
     save("snapshot-final")
     eval_metrics(cur_img / 1000)
-    print("done")
-    return state
+    loader.close()
+    log("done")
+    return state if main_rank else None
 
 
 if __name__ == "__main__":

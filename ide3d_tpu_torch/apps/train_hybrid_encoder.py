@@ -6,13 +6,19 @@ Usage:
         [--bisenet segNet-20Class.pth] [--vgg-weights vgg19.pth] [--lpips-weights lpips.pth] \\
         [--arcface-weights model_ir_se50.pth] [--resume runs/e0/encoder-00010000] [--device cuda]
 
-One step covers the synthetic and the real branch (train/encoder.py) on one
-device (the card unless `--device cpu`); G, BiSeNet and the loss networks are
-frozen. The real branch reads the compact uint8 batches of the port's
-CameraLabeledDataset through pinned memory and expands them on the device.
-Every 100 steps a line of the step's losses goes to stats.jsonl; snapshots
-`encoder-<step>` (io/checkpoint: E, opt_e, the step) every --snap steps and at
-the end. `--resume` restores E, Adam and the step; the draws restart from
+One step covers the synthetic and the real branch (train/encoder.py), data
+parallel over the visible cards (one rank per card over NCCL, gloo with
+`--device cpu`; torchrun's world when it launched the process), reduced to
+the largest world that divides --batch, as the JAX app's mesh (the reference
+trained the encoder under DDP). G, BiSeNet and the loss networks are frozen;
+rank 0's G and E are broadcast, the loss networks read from their files on
+every rank. Each rank reads its rows of the global batch (the
+compact uint8 batches of the port's CameraLabeledDataset, copied from pinned
+memory on a side stream) and expands them on its card. Every 100 steps rank 0
+writes a line of the losses, averaged over the ranks, to stats.jsonl, and
+snapshots `encoder-<step>` (io/checkpoint: E, opt_e, the step) every --snap
+steps and at the end, after checking the ranks' E equal. `--resume` (read by
+rank 0, broadcast) restores E, Adam and the step; the draws restart from
 --seed. The loss networks' files are torch state dicts: VGG19's trunk
 (`features.*`), the LPIPS trunk and weights (`vgg.features.*`, `lin0..4.weight`),
 IR-SE50 (`model_ir_se50.pth` names).
@@ -74,17 +80,30 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
+    import torch
+
+    from ..parallel import mesh
+
+    device_type = torch.device(args.device).type
+    return mesh.launch(_train, mesh.dp_world(args.batch, device_type), device_type, args)
+
+
+def _train(group, args):
     import numpy as np
     import torch
 
     from ..io.checkpoint import load_checkpoint, save_checkpoint
     from ..models.encoder import HybridEncoder
+    from ..parallel import mesh
+    from ..parallel.stats import StatsAccumulator
     from ..render.camera import CANONICAL_POSE_25
     from ..train.encoder import EncoderTrainConfig, init_encoder_state, make_encoder_train_step
+    from ..utils.profiling import check_replica_consistency
     from .common import load_generator
 
-    device = torch.device(args.device)
-    os.makedirs(args.outdir, exist_ok=True)
+    device, main_rank = group.device, group.is_main
+    if main_rank:
+        os.makedirs(args.outdir, exist_ok=True)
     G = load_generator(args.network, device).requires_grad_(False)
     R, n_geo = G.cfg.img_resolution, G.synthesis.num_ws_geo
     E = HybridEncoder(size=R, n_latents_app=G.num_ws - n_geo, n_latents_geo=n_geo,
@@ -94,41 +113,54 @@ def main(argv=None):
                               train_gen=not args.no_gen_branch, train_real=args.data is not None)
     state = init_encoder_state(E, tcfg)
     if args.resume:
-        saved, meta = load_checkpoint(args.resume, map_location=device)
+        saved, meta = load_checkpoint(args.resume) if main_rank else (None, None)
+        saved, meta = mesh.broadcast_tree(group, (saved, meta))
         state.E.load_state_dict(saved["E"])
         state.opt_e.load_state_dict(saved["opt_e"])
         state.step = int(meta.get("step") or 0)
     bisenet, vgg_feats, lpips_fn, id_embed = load_loss_networks(args, device)
+    mesh.replicate(group, G, state.E)
     step_fn = make_encoder_train_step(E, G, tcfg, bisenet=bisenet, vgg_feats=vgg_feats,
-                                      lpips_fn=lpips_fn, id_embed=id_embed)
+                                      lpips_fn=lpips_fn, id_embed=id_embed, group=group)
 
     loader = None
     if args.data:
-        from ..data.dataset import CameraLabeledDataset, batch_to_device, infinite_loader
+        from ..data.dataset import CameraLabeledDataset, infinite_loader
 
-        loader = infinite_loader(CameraLabeledDataset(args.data, args.seg, resolution=R),
-                                 args.batch, seed=args.seed)
+        loader = mesh.prefetch_to_device(
+            infinite_loader(CameraLabeledDataset(args.data, args.seg, resolution=R), args.batch,
+                            seed=args.seed, rank=group.rank, world_size=group.size), device)
     c_front = torch.as_tensor(np.broadcast_to(CANONICAL_POSE_25, (args.batch, 25)).copy(),
-                              device=device)
+                              device=device)[mesh.rows(group, args.batch)]
     gen = torch.Generator(device=device).manual_seed(args.seed + 1)
-    print(f"device: {device}; batch {args.batch}; from step {state.step}")
+    if main_rank:
+        print(f"device: {device}; {group.size} rank(s) over {group.backend}; global batch "
+              f"{args.batch}; from step {state.step}")
 
     t0 = time.time()
     for i in range(state.step, args.max_steps):
-        batch = batch_to_device(next(loader), device) if loader is not None else {"c": c_front}
+        batch = next(loader) if loader is not None else {"c": c_front}
         state, stats = step_fn(state, batch, gen)
         if i % 100 == 0:
-            line = {"step": i, "time_h": (time.time() - t0) / 3600,
-                    **{k: float(v) for k, v in stats.items()}}
-            print(json.dumps(line))
-            with open(os.path.join(args.outdir, "stats.jsonl"), "a") as f:
-                f.write(json.dumps(line) + "\n")
+            acc = StatsAccumulator(group)
+            acc.update(stats)
+            line = {"step": i, "time_h": (time.time() - t0) / 3600, **acc.as_dict()}
+            if main_rank:
+                print(json.dumps(line))
+                with open(os.path.join(args.outdir, "stats.jsonl"), "a") as f:
+                    f.write(json.dumps(line) + "\n")
         if (i + 1) % args.snap == 0 or (i + 1) == args.max_steps:
-            save_checkpoint(os.path.join(args.outdir, f"encoder-{i + 1:08d}"),
-                            {"E": state.E.state_dict(), "opt_e": state.opt_e.state_dict()},
-                            step=i + 1)
-    print("done")
-    return state
+            if not check_replica_consistency(group, state.E):
+                raise RuntimeError(f"step {i + 1}: the ranks' E differ")
+            if main_rank:
+                save_checkpoint(os.path.join(args.outdir, f"encoder-{i + 1:08d}"),
+                                {"E": state.E.state_dict(), "opt_e": state.opt_e.state_dict()},
+                                step=i + 1)
+    if loader is not None:
+        loader.close()
+    if main_rank:
+        print("done")
+    return state if main_rank else None
 
 
 if __name__ == "__main__":

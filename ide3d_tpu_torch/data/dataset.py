@@ -235,23 +235,35 @@ class CameraLabeledDataset(ImageFolderDataset):
         super().__init__(path, seg_path=seg_path, **kw)
 
 
-def infinite_loader(dataset, batch_size: int, seed: int = 0) -> Iterator[dict]:
+def infinite_loader(dataset, batch_size: int, seed: int = 0, rank: int = 0,
+                    world_size: int = 1) -> Iterator[dict]:
     """Infinite batch iterator over a seeded epoch permutation, repeated
     forever. Yields the compact wire batch: img uint8 [B,H,W,3], seg uint8
     class ids [B,H,W] (with seg masks), c float32 [B,25]; about 1/22 of the
     one-hot fp32 batch's bytes at 512², expanded on the card
-    (train.gan.expand_compact_batch)."""
+    (train.gan.expand_compact_batch).
+
+    `batch_size` is the global batch; rank `rank` of `world_size` gets its
+    rows [rank*b, (rank+1)*b), b = batch_size / world_size, of each global
+    batch of the same permutation (and reads only those items), so W ranks
+    together see what one process sees."""
+    if batch_size % world_size:
+        raise ValueError(f"batch {batch_size} not divisible by the world size {world_size}")
+    b = batch_size // world_size
     n = len(dataset)
     rng = np.random.RandomState(seed)
     order = np.arange(n)
     pos = 0
     while True:
         imgs, segs, labels = [], [], []
-        for _ in range(batch_size):
+        for i in range(batch_size):
             if pos == 0:
                 rng.shuffle(order)
-            img, mask, label, flip = dataset.raw_item(int(order[pos]))
+            idx = int(order[pos])
             pos = (pos + 1) % n
+            if i // b != rank:
+                continue
+            img, mask, label, flip = dataset.raw_item(idx)
             if flip:
                 img = img[:, ::-1]
                 if mask is not None:

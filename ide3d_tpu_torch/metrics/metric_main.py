@@ -4,7 +4,8 @@ Counterpart of ide3d_tpu/metrics/metric_main.py, with the same names: fid,
 kid, pr, ppl2_wend, eqt, eqr, inception_score (also registered as `is`), and
 the reference's 50k presets with their num_items / max_real. Each call returns
 one record (results, metric, total_time, num_items, detector provenance) and
-appends it to `run_dir`/metric-<name>.jsonl when a run_dir is given.
+appends it to `run_dir`/metric-<name>.jsonl when a run_dir is given (rank 0's,
+under a data-parallel `group`, whose every rank computes the same record).
 """
 
 from __future__ import annotations
@@ -52,7 +53,7 @@ def calc_metric(metric: str, run_dir: str = None, **kwargs) -> dict:
                             {"detector": type(opts.detector).__name__,
                              "weights": None, "source": "unknown"}),
     }
-    if run_dir is not None:
+    if run_dir is not None and (opts.group is None or opts.group.is_main):
         os.makedirs(run_dir, exist_ok=True)
         with open(os.path.join(run_dir, f"metric-{metric}.jsonl"), "a") as f:
             f.write(json.dumps(record, default=float) + "\n")

@@ -6,6 +6,13 @@ the dataset's statistics, and the two extraction loops. The generator side
 draws z and c from `np.random.RandomState(opts.seed)` exactly as the JAX
 package does, runs G at batch `opts.batch_size` on `opts.device`, and hands the
 fp32 image to the detector; features come back to the host as numpy.
+
+Under a data-parallel `opts.group` (the JAX `mesh`, the reference's NCCL
+ranks) both loops split each batch of items over the ranks (contiguous rows;
+a short last batch as evenly as it goes) and gather the features in item
+order on every rank, so every rank holds the 1-rank bank and computes the
+same metric; the dataset cache is read when rank 0 finds it and written by
+rank 0. The batch of generated items must divide by the world size.
 """
 
 from __future__ import annotations
@@ -18,6 +25,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from ..parallel.mesh import Group, rows
 
 
 class FeatureStats:
@@ -108,6 +117,7 @@ class MetricOptions:
     # the dataset's images through its built-in encoder (GeneratorConfig.use_encoder).
     cond_render: bool = False
     device: torch.device | str = "cuda"
+    group: Optional[Group] = None  # split the extraction over its ranks
 
 
 def _cache_path(opts: MetricOptions, tag: str,
@@ -150,11 +160,27 @@ def _resolved_max_real(opts: MetricOptions) -> Optional[int]:
     return opts.max_real  # None = full dataset
 
 
+def _gather_items(group, feats: torch.Tensor, counts: list) -> np.ndarray:
+    """Every rank's features [counts[rank], dim] in rank (item) order, on every
+    rank: padded to the largest count for the collective, then trimmed."""
+    m = max(counts)
+    pad = torch.zeros((m - feats.shape[0],) + tuple(feats.shape[1:]), dtype=feats.dtype,
+                      device=feats.device)
+    full = group.all_gather(torch.cat([feats, pad])).cpu().numpy()
+    return np.concatenate([full[r * m:r * m + c] for r, c in enumerate(counts)])
+
+
+def _split(group, n: int) -> list:
+    """Item counts of each rank for a batch of n items, as even as they go."""
+    return [n // group.size + (1 if r < n % group.size else 0) for r in range(group.size)]
+
+
 def compute_feature_stats_for_dataset(
     opts: MetricOptions, capture_all=False, capture_mean_cov=True
 ) -> FeatureStats:
+    group = opts.group or Group()
     cache = _cache_path(opts, "dataset", capture_all, capture_mean_cov)
-    if cache and os.path.exists(cache):
+    if cache and group.broadcast_object(os.path.exists(cache)):
         return FeatureStats.load(cache)
 
     cap = _resolved_max_real(opts)
@@ -164,12 +190,16 @@ def compute_feature_stats_for_dataset(
     i = 0
     with torch.inference_mode():
         while not stats.is_full() and i < n:
-            imgs = np.stack([opts.dataset[j][0] for j in range(i, min(i + B, n))])
+            counts = _split(group, min(i + B, n) - i)
+            lo, k = i + sum(counts[:group.rank]), counts[group.rank]
+            # a rank with no item of a short last batch runs the batch's first
+            # one to take part in the gather, and contributes none
+            imgs = np.stack([opts.dataset[j][0] for j in (range(lo, lo + k) if k else [i])])
             x = torch.from_numpy(imgs).to(opts.device).float() / 127.5 - 1.0
-            stats.append(opts.detector(x).float().cpu().numpy())
+            stats.append(_gather_items(group, opts.detector(x).float()[:k], counts))
             i += B
 
-    if cache:
+    if cache and group.is_main:
         stats.save(cache)
     return stats
 
@@ -199,18 +229,21 @@ def compute_feature_stats_for_generator(
             raise ValueError("cond_render needs a dataset")
         if not G.cfg.use_encoder:
             raise ValueError("cond_render requires GeneratorConfig.use_encoder")
+    group = opts.group or Group()
     stats = FeatureStats(capture_all, capture_mean_cov, max_items=opts.num_items)
     rs = np.random.RandomState(opts.seed)
     B = opts.batch_size
+    mine = rows(group, B)  # this rank's rows of each batch
     with torch.inference_mode():
         while not stats.is_full():
-            z = torch.as_tensor(rs.randn(B, G.cfg.z_dim), dtype=torch.float32, device=dev)
-            c = torch.as_tensor(sample_labels(opts, rs, B), device=dev)
+            z = torch.as_tensor(rs.randn(B, G.cfg.z_dim)[mine], dtype=torch.float32, device=dev)
+            c = torch.as_tensor(sample_labels(opts, rs, B)[mine], device=dev)
             cond = None
             if opts.cond_render:
-                idx = rs.randint(len(opts.dataset), size=B)
+                idx = rs.randint(len(opts.dataset), size=B)[mine]
                 cond = torch.from_numpy(np.stack([opts.dataset[int(i)][0] for i in idx])).to(dev)
                 cond = cond.float() / 127.5 - 1.0
             img = G(z, c, cond_img=cond).float()
-            stats.append(opts.detector(img).float().cpu().numpy())
+            stats.append(_gather_items(group, opts.detector(img).float(),
+                                       [mine.stop - mine.start] * group.size))
     return stats

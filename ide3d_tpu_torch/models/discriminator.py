@@ -8,7 +8,8 @@ camera label (projection discriminator). The input is NHWC, as in the JAX
 package: the 512² RGB ++ the upsampled raw render (6 channels), plus the 19
 semantic channels for the seg-conditioned D (25). Blocks run in the configured
 compute dtype (bf16 on the card), the epilogue in fp32. Module and parameter
-names follow the JAX tree, so io/from_jax.load_jax_params loads it.
+names follow the JAX tree, so io/from_jax.load_jax_params loads it. Under
+a data-parallel group the minibatch stddev spans the global batch.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..parallel.mesh import Group, gather_rows, rows
 from .blocks import DTYPES
 from .layers import CONV_CLAMP, Conv2dLayer, FullyConnectedLayer, init_seeded
 from .mapping import MappingNetwork
@@ -55,22 +57,33 @@ class DiscriminatorBlock(nn.Module):
         return y + x
 
 
-def minibatch_stddev(x: torch.Tensor, group_size: Optional[int] = 4, num_channels: int = 1) -> torch.Tensor:
+def minibatch_stddev(x: torch.Tensor, group_size: Optional[int] = 4, num_channels: int = 1,
+                     group: Optional[Group] = None) -> torch.Tensor:
     """NCHW x -> x ++ num_channels feature maps of the group standard deviation.
 
     Groups are strided: sample s belongs to group s mod n, n = N // G, so that
     out[s] = y[s mod n] as in the reference. Computed as the JAX package does,
-    through an [N, N] group-membership average over a flat [N, C*H*W] view, in fp32."""
-    N, C, H, W = x.shape
+    through an [N, N] group-membership average over a flat [N, C*H*W] view, in fp32.
+
+    With a data-parallel `group`, N is the GLOBAL batch, as in the JAX step
+    (one logical array over the mesh): the ranks' flat rows are all-gathered,
+    differentiably to any order (parallel/mesh.gather_rows), and each rank
+    keeps its own rows of y."""
+    b, C, H, W = x.shape
+    xf = x.reshape(b, -1).float()
+    if group is not None and group.distributed:
+        xf = gather_rows(group, xf)
+    N = xf.shape[0]
     G = min(group_size, N) if group_size is not None else N
     n = N // G
     idx = torch.arange(N, device=x.device)
     M = ((idx[:, None] % n) == (idx[None, :] % n)).float() / G  # row s averages over group(s)
-    xf = x.reshape(N, -1).float()
     mean = M @ xf
     std = torch.sqrt(M @ (xf - mean).square() + 1e-8)
     y = std.reshape(N, num_channels, C // num_channels, H, W).mean(dim=(2, 3, 4))  # [N, F]
-    y = y[:, :, None, None].expand(N, num_channels, H, W).to(x.dtype)
+    if group is not None and group.distributed:
+        y = y[rows(group, N)]
+    y = y[:, :, None, None].expand(b, num_channels, H, W).to(x.dtype)
     return torch.cat([x, y], dim=1)
 
 
@@ -88,10 +101,11 @@ class DiscriminatorEpilogue(nn.Module):
         self.fc = FullyConnectedLayer(in_channels * resolution**2, in_channels, activation="lrelu")
         self.out = FullyConnectedLayer(in_channels, 1 if cmap_dim == 0 else cmap_dim)
 
-    def forward(self, x: torch.Tensor, cmap: Optional[torch.Tensor]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, cmap: Optional[torch.Tensor],
+                group: Optional[Group] = None) -> torch.Tensor:
         x = x.float()
         if self.mbstd_num_channels > 0:
-            x = minibatch_stddev(x, self.mbstd_group_size, self.mbstd_num_channels)
+            x = minibatch_stddev(x, self.mbstd_group_size, self.mbstd_num_channels, group)
         x = self.conv(x)
         x = self.fc(x.permute(0, 2, 3, 1).reshape(x.shape[0], -1))  # the JAX (H, W, C) order
         x = self.out(x)
@@ -151,10 +165,13 @@ class Discriminator(nn.Module):
         """Draw every weight from a CPU torch.Generator seeded with `seed`. Returns self."""
         return init_seeded(self, seed)
 
-    def forward(self, img: torch.Tensor, c: Optional[torch.Tensor]) -> torch.Tensor:
+    def forward(self, img: torch.Tensor, c: Optional[torch.Tensor],
+                group: Optional[Group] = None) -> torch.Tensor:
+        """`group`: the data-parallel group whose global batch the minibatch
+        stddev spans (None: this call's batch)."""
         img = img.permute(0, 3, 1, 2)
         x = None
         for res in self.block_resolutions:
             x = getattr(self, f"b{res}")(x, img if res == self.cfg.img_resolution else None)
         cmap = self.mapping(None, c) if self.mapping is not None else None
-        return self.b4(x, cmap)
+        return self.b4(x, cmap, group)

@@ -340,17 +340,12 @@ class Ide3dSynthesisNetwork(nn.Module):
         rout = self.renderer.render_fine(self.renderer.render_coarse(
             None, None, cam2world, rp, generator, table=planes, volume=volume), rp)
 
-        feature = rout["feature"].permute(0, 3, 1, 2)  # [B, Cf, r, r] fp32
-        if self.raw_rgb is None:  # raw_head="slice": the first 3 feature channels
-            img_raw = feature[:, :3].float()
-        else:
-            img_raw = self.raw_rgb(feature.to(self.dtype), ws[:, self._raw_row]).float()
-        img = self.superresolve(feature, img_raw, ws, noise_mode, noise_gen).permute(0, 2, 3, 1)
+        img, img_raw = self.finish(rout["feature"], ws, noise_mode, noise_gen)
 
         if return_all:
             return {
                 "img": img,
-                "img_raw": img_raw.permute(0, 2, 3, 1),
+                "img_raw": img_raw,
                 "seg": self._upsample_seg(rout["seg"]),
                 "seg_raw": rout["seg"],
                 "depth": rout["depth"],
@@ -360,8 +355,23 @@ class Ide3dSynthesisNetwork(nn.Module):
         if return_seg:
             return img, self._upsample_seg(rout["seg"])
         if return_raw:
-            return img, img_raw.permute(0, 2, 3, 1)
+            return img, img_raw
         return img
+
+    def finish(
+        self, feature: torch.Tensor, ws: torch.Tensor, noise_mode: str = "const",
+        generator: Optional[torch.Generator] = None,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The frame's 2D epilogue: the rendered feature image [B, r, r, Cf]
+        fp32 -> (img [B, R, R, 3], img_raw [B, r, r, 3]), both fp32 NHWC: the
+        raw-RGB head (or the first 3 channels) and the superres stack."""
+        feature = feature.permute(0, 3, 1, 2)  # [B, Cf, r, r] fp32
+        if self.raw_rgb is None:  # raw_head="slice": the first 3 feature channels
+            img_raw = feature[:, :3].float()
+        else:
+            img_raw = self.raw_rgb(feature.to(self.dtype), ws[:, self._raw_row]).float()
+        img = self.superresolve(feature, img_raw, ws, noise_mode, generator).permute(0, 2, 3, 1)
+        return img, img_raw.permute(0, 2, 3, 1)
 
     def _upsample_seg(self, seg_raw: torch.Tensor) -> torch.Tensor:
         """[B,h,w,C] -> [B,R,R,C]; bilinear with half-pixel centres, which is

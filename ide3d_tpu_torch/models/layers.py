@@ -24,6 +24,7 @@ from ..ops.bias_act import activation_funcs, bias_act
 from ..ops.conv2d_resample import conv2d_resample
 from ..ops.modulated_conv import modulated_conv2d
 from ..ops.upfirdn2d import setup_filter
+from ..parallel.mesh import draw
 
 RESAMPLE_FILTER = (1, 3, 3, 1)
 CONV_CLAMP = 256.0
@@ -129,8 +130,8 @@ class SynthesisLayer(nn.Module):
         if noise_mode == "random":
             if generator is None:
                 raise ValueError("noise_mode='random' needs a torch.Generator")
-            noise = torch.randn(x.shape[0], 1, self.resolution, self.resolution,
-                                generator=generator, device=x.device) * self.noise_strength
+            noise = draw(torch.randn, (x.shape[0], 1, self.resolution, self.resolution),
+                         generator=generator, device=x.device) * self.noise_strength
         elif noise_mode == "const":
             noise = (self.noise_const * self.noise_strength)[None, None]
 

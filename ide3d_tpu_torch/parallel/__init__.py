@@ -1,1 +1,1 @@
-"""Training statistics of the PyTorch port."""
+"""Data parallelism and training statistics of the PyTorch port."""

@@ -15,6 +15,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..parallel.mesh import draw
+
 FOCAL_LENGTH_FFHQ = 4.2647  # normalized focal length
 INTRINSICS_FFHQ = np.array(
     [[FOCAL_LENGTH_FFHQ, 0.0, 0.5], [0.0, FOCAL_LENGTH_FFHQ, 0.5], [0.0, 0.0, 1.0]],
@@ -121,7 +123,7 @@ def perturb_z_vals(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Stratified jitter of sample depths, uniform within one bin spacing."""
     spacing = z_vals[:, :, 1:2, :] - z_vals[:, :, 0:1, :]
-    u = torch.rand(z_vals.shape, generator=generator, device=z_vals.device)
+    u = draw(torch.rand, z_vals.shape, generator=generator, device=z_vals.device)
     offset = (u - 0.5) * spacing
     return points + offset * ray_directions[:, :, None, :], z_vals + offset
 

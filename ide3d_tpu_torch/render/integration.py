@@ -15,14 +15,16 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import draw
+
 LOG_EPS = -23.025850929940457  # log(1e-10)
 
 
 def _density(sigmas: torch.Tensor, clamp_mode: str, noise_std: float,
              generator: Optional[torch.Generator]) -> torch.Tensor:
     if generator is not None and noise_std > 0:
-        sigmas = sigmas + torch.randn(sigmas.shape, generator=generator,
-                                      device=sigmas.device) * noise_std
+        sigmas = sigmas + draw(torch.randn, sigmas.shape, generator=generator,
+                               device=sigmas.device) * noise_std
     if clamp_mode == "softplus":
         return F.softplus(sigmas)
     if clamp_mode == "relu":
@@ -91,8 +93,8 @@ def integrate_rays_merged(
     zs, order = torch.sort(z, dim=-1, stable=True)
     sigmas = feats_sigma[..., -1].float()
     if generator is not None and noise_std > 0:  # in input order, as the JAX function
-        sigmas = sigmas + torch.randn(sigmas.shape, generator=generator,
-                                      device=sigmas.device) * noise_std
+        sigmas = sigmas + draw(torch.randn, sigmas.shape, generator=generator,
+                               device=sigmas.device) * noise_std
     density = _density(torch.gather(sigmas, -1, order), clamp_mode, 0.0, None)
 
     big = 1e10
@@ -139,7 +141,8 @@ def sample_pdf(
         u = torch.linspace(0.0, 1.0, n_importance, device=cdf.device, dtype=cdf.dtype)
         u = u.expand(R, n_importance).contiguous()
     else:
-        u = torch.rand(R, n_importance, generator=generator, device=cdf.device, dtype=cdf.dtype)
+        u = draw(torch.rand, (R, n_importance), generator=generator, device=cdf.device,
+                 dtype=cdf.dtype)
 
     inds = torch.searchsorted(cdf, u, right=False)
     below = (inds - 1).clamp(0, S)

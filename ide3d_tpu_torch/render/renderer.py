@@ -33,6 +33,7 @@ from torch import nn
 from ..ops.bias_act import bias_act
 from ..ops.grid_sample import grid_sample_3d, sample_from_triplane
 from ..ops.ray_march import sort_integrate
+from ..parallel.mesh import draw
 from .camera import get_initial_rays, perturb_z_vals, transform_rays_to_world
 from .integration import integrate_rays, sample_pdf
 
@@ -132,11 +133,17 @@ class TriplaneRenderer(nn.Module):
         generator: Optional[torch.Generator] = None,
         table: Optional[torch.Tensor] = None,  # build_table(img_v, seg_v), made earlier
         volume: Optional[torch.Tensor] = None,  # the hybrid G's feature volume [B,C,D,H,W]
+        ray_slice: Optional[tuple] = None,  # (start, length): a contiguous block of rays
     ) -> dict:
         """Coarse pass (+ importance depths when hierarchical). Returns the state
         `render_fine` consumes. With no generator the pass is deterministic:
         no depth jitter and sample_pdf on linspace CDF positions. A caller that
-        keeps the planes across poses passes their `table`."""
+        keeps the planes across poses passes their `table`.
+
+        `ray_slice=(start, length)` renders only the rays [start, start +
+        length) of the row-major pixel grid (parallel/render.py's ray-sharded
+        frame); per-ray work is independent, so the block's outputs are those
+        rows of the whole pass. Pair it with `render_fine(..., flat=True)`."""
         B = cam2world.shape[0]
         S = rp.num_steps
         W = H = rp.img_size
@@ -148,6 +155,10 @@ class TriplaneRenderer(nn.Module):
         if generator is not None:
             points_cam, z_vals = perturb_z_vals(generator, points_cam, z_vals, rays_d_cam)
         pts, dirs, origins = transform_rays_to_world(points_cam, rays_d_cam, cam2world)
+        if ray_slice is not None:
+            start, Rr = ray_slice
+            pts, dirs, origins, z_vals, rays_d_cam = (
+                t[:, start:start + Rr] for t in (pts, dirs, origins, z_vals, rays_d_cam))
 
         if table is None:
             table = self.build_table(img_v, seg_v)
@@ -169,9 +180,10 @@ class TriplaneRenderer(nn.Module):
             st["fine_z"] = fine_z.reshape(B, Rr, F_, 1).detach()
         return st
 
-    def render_fine(self, st: dict, rp: RenderParams) -> dict:
+    def render_fine(self, st: dict, rp: RenderParams, flat: bool = False) -> dict:
         """Fine pass + compositing of the merged samples. Returns dict(feature
-        [B,H,W,32], seg [B,H,W,19], depth [B,H,W,1], weights_sum [B,H,W,1])."""
+        [B,H,W,32], seg [B,H,W,19], depth [B,H,W,1], weights_sum [B,H,W,1]);
+        `flat=True` keeps the ray axis ([B, R, C]), as a `ray_slice` pass needs."""
         coarse, z_vals, rays_d_cam = st["coarse"], st["z_vals"], st["rays_d_cam"]
         B, Rr, S, _ = coarse.shape
         W = H = rp.img_size
@@ -186,8 +198,8 @@ class TriplaneRenderer(nn.Module):
             noise = None
             if gen is not None and rp.nerf_noise > 0:
                 # The draw of integrate_rays_merged: [B, R, S+F], input order.
-                noise = torch.randn((B, Rr, S + F_), generator=gen,
-                                    device=coarse.device) * rp.nerf_noise
+                noise = draw(torch.randn, (B, Rr, S + F_), generator=gen,
+                             device=coarse.device) * rp.nerf_noise
             ray_norm = torch.linalg.vector_norm(rays_d_cam.float(), dim=-1, keepdim=True)
             comp, depth, wsum = sort_integrate(
                 z_vals.float().contiguous(), coarse.contiguous(),
@@ -201,11 +213,12 @@ class TriplaneRenderer(nn.Module):
             wsum = weights.sum(dim=-2)
 
         fc = self.feature_channels
+        grid = (B, Rr) if flat else (B, H, W)
         return {
-            "feature": comp[..., :fc].reshape(B, H, W, fc),
-            "seg": comp[..., fc:].reshape(B, H, W, self.seg_channels),
-            "depth": depth.reshape(B, H, W, 1),
-            "weights_sum": wsum.reshape(B, H, W, 1),
+            "feature": comp[..., :fc].reshape(*grid, fc),
+            "seg": comp[..., fc:].reshape(*grid, self.seg_channels),
+            "depth": depth.reshape(*grid, 1),
+            "weights_sum": wsum.reshape(*grid, 1),
         }
 
     def render(

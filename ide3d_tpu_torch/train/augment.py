@@ -25,6 +25,7 @@ warp is `ops.grid_sample.sample_bilinear`, which differentiates twice (R1).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -35,6 +36,7 @@ import torch.nn.functional as F
 from ..models.blocks import DTYPES
 from ..ops.grid_sample import sample_bilinear
 from ..ops.upfirdn2d import downsample2d, setup_filter, upsample2d
+from ..parallel.mesh import Group, draw
 
 # Orthogonal wavelet decomposition low-pass: the public sym6 coefficients, as
 # the reference registers them for its geometric anti-aliasing.
@@ -81,11 +83,11 @@ class AugmentConfig:
 
 
 def _rand(gen: torch.Generator, shape, device) -> torch.Tensor:
-    return torch.rand(shape, generator=gen, device=device)
+    return draw(torch.rand, shape, generator=gen, device=device)
 
 
 def _randn(gen: torch.Generator, shape, device) -> torch.Tensor:
-    return torch.randn(shape, generator=gen, device=device)
+    return draw(torch.randn, shape, generator=gen, device=device)
 
 
 def _bernoulli(gen: torch.Generator, p: float, shape, device) -> torch.Tensor:
@@ -120,7 +122,8 @@ def _geometry_matrix(gen: torch.Generator, p: float, cfg: AugmentConfig, B: int,
         Gm = _scale2d(1.0 - 2.0 * w, ones) @ Gm
     if cfg.rotate90 > 0:
         w = _bernoulli(gen, cfg.rotate90 * p, (B,), device)
-        k = torch.randint(0, 4, (B,), generator=gen, device=device).float() * w
+        k = draw(functools.partial(torch.randint, 0, 4), (B,), generator=gen,
+                 device=device).float() * w
         Gm = _rot2d(-k * (math.pi / 2)) @ Gm
     if cfg.xint > 0:
         # ONE Bernoulli gates both translation axes, as in the reference
@@ -330,9 +333,14 @@ def ada_init() -> AdaState:
     return AdaState(p=0.0, rt_accum=(0.0, 0.0))
 
 
-def ada_accumulate(state: AdaState, sign_mean, n) -> AdaState:
+def ada_accumulate(state: AdaState, sign_mean, n, group: Optional[Group] = None) -> AdaState:
     """Add one batch's per-sample sign statistic: sign_mean = mean over the
-    batch's n samples of sign(D(real)) (the step's stats['real_signs'])."""
+    batch's n samples of sign(D(real)) (the step's stats['real_signs']). Under
+    a data-parallel `group`, sign_mean is this rank's 0-d tensor, n the global
+    batch, and the mean over the ranks is added, so p moves alike on every
+    rank (a collective: every rank calls it)."""
+    if group is not None:
+        sign_mean = group.all_mean(torch.as_tensor(sign_mean, device=group.device))
     a = np.asarray(state.rt_accum, np.float64)
     return state._replace(rt_accum=(float(a[0]) + float(sign_mean) * n, float(a[1]) + float(n)))
 

@@ -14,7 +14,10 @@ Both branches enter one loss and one backward. G and BiSeNet are frozen (the
 gradient is taken for E's parameters only); E trains with Adam(1e-4, betas
 0.9 / 0.99). The perceptual, LPIPS and identity losses are callbacks (None:
 off). Without BiSeNet the synthetic branch takes its pseudo-mask from G's own
-seg. One device; the JAX package's mesh sharding is not ported.
+seg. Under a data-parallel group (parallel/mesh.py) the batch is this rank's
+rows of the global batch, z is drawn at the global shape and sliced, and E's
+gradients are averaged over the ranks as one flat buffer: every loss is a
+per-sample mean, so the step is the JAX step over the mesh.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch.nn.functional as F
 
 from ..models.encoder import HybridEncoder
 from ..models.generator import Ide3dGenerator
+from ..parallel.mesh import Group, all_reduce_grads, draw, global_draws
 from ..utils.seg import id_remap
 from . import losses as L
 from .gan import expand_compact_batch
@@ -136,22 +140,27 @@ def encoder_loss(E: HybridEncoder, G: Ide3dGenerator, tcfg: EncoderTrainConfig,
 
 def make_encoder_train_step(E: HybridEncoder, G: Ide3dGenerator, tcfg: EncoderTrainConfig,
                             bisenet: Optional[Callable] = None, vgg_feats: Optional[Callable] = None,
-                            lpips_fn: Optional[Callable] = None, id_embed: Optional[Callable] = None):
+                            lpips_fn: Optional[Callable] = None, id_embed: Optional[Callable] = None,
+                            group: Optional[Group] = None):
     """Returns step(state, batch, generator) -> (state, stats): z drawn from
-    `generator` (on the batch's device), encoder_loss, E's gradient, Adam.
-    stats are 0-d device tensors (nothing is read back)."""
+    `generator` (on the batch's device), encoder_loss, E's gradient averaged
+    over `group` (None: this process alone), Adam. stats are this rank's 0-d
+    device tensors (nothing is read back)."""
     params = list(E.parameters())
+    group = group or Group()
 
     @torch.enable_grad()
     def step(state: EncoderTrainState, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None):
         c = batch["c"]
-        z = torch.randn(c.shape[0], G.z_dim, generator=generator, device=c.device)
+        with global_draws(group):
+            z = draw(torch.randn, (c.shape[0], G.z_dim), generator=generator, device=c.device)
         total, stats = encoder_loss(state.E, G, tcfg, batch, z, bisenet, vgg_feats, lpips_fn,
                                     id_embed)
         grads = torch.autograd.grad(total, params, allow_unused=True)
-        for p, g in zip(params, grads):  # an unused parameter's moments still decay, as optax's
-            p.grad = torch.zeros_like(p) if g is None else g
+        # an unused parameter's moments still decay, as optax's
+        for p, g in zip(params, all_reduce_grads(group, params, grads)):
+            p.grad = g
         state.opt_e.step()
         state.opt_e.zero_grad(set_to_none=True)
         state.step += 1

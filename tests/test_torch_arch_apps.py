@@ -45,6 +45,7 @@ from ide3d_tpu_torch.render.camera import CANONICAL_POSE_25
 from ide3d_tpu_torch.render.renderer import RenderParams
 from ide3d_tpu_torch.train import nada
 from torch_threads import module_one_intra_op_thread  # noqa: F401 (an autouse fixture)
+from torch_tmp import drop_tmp_path  # noqa: F401 (an autouse fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(img_resolution=32, render_size=8, plane_resolution=16, channel_base=512,

@@ -49,6 +49,7 @@ from ide3d_tpu_torch.models.generator import GeneratorConfig, Ide3dGenerator, Id
 from ide3d_tpu_torch.render.renderer import RenderParams
 from ide3d_tpu_torch.train import nada, styleclip
 from torch_threads import module_one_intra_op_thread  # noqa: F401 (an autouse fixture)
+from torch_tmp import drop_tmp_path  # noqa: F401 (an autouse fixture)
 
 TINY = dict(img_resolution=32, render_size=8, plane_resolution=16, channel_base=512,
             channel_max=32, sr_channel_base=256, sr_channel_max=16, feature_channels=8,

@@ -22,6 +22,7 @@ tests/test_torch_face_nets.py).
 import json
 import os
 import re
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -57,6 +58,7 @@ from ide3d_tpu_torch.render.renderer import RenderParams
 from ide3d_tpu_torch.train import encoder as tenc
 from ide3d_tpu_torch.train import pti
 from torch_threads import module_one_intra_op_thread  # noqa: F401 (an autouse fixture)
+from torch_tmp import drop_tmp_path  # noqa: F401 (an autouse fixture)
 
 TINY = dict(img_resolution=32, render_size=8, plane_resolution=16, channel_base=512,
             channel_max=32, sr_channel_base=256, sr_channel_max=16, feature_channels=8,
@@ -194,10 +196,12 @@ def arcface_file(tmp_path_factory):
     fp32 rounding alone, tests/test_torch_face_nets.py), in fp16 to keep the
     file small (the modules convert)."""
     sd = ArcFaceIRSE50().init().state_dict()
-    path = tmp_path_factory.mktemp("arcface") / "arcface.pth"
+    folder = tmp_path_factory.mktemp("arcface")
+    path = folder / "arcface.pth"
     torch.save({k: (v * 0.5 if v.ndim == 4 else v).half() if v.is_floating_point() else v
                 for k, v in sd.items()}, path)
-    return str(path)
+    yield str(path)
+    shutil.rmtree(folder, ignore_errors=True)  # ~88 MB; tests/torch_tmp.py says why
 
 
 def _trunk(module, prefixes, seed):

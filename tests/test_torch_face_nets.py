@@ -34,6 +34,7 @@ from ide3d_tpu_torch.models.arcface import ArcFaceIRSE50
 from ide3d_tpu_torch.models.bisenet import BiSeNet, resize_bilinear_ac
 from ide3d_tpu_torch.models.e4e import E4eEncoder, load_e4e, pivot_from_image
 from torch_threads import module_one_intra_op_thread  # noqa: F401 (an autouse fixture)
+from torch_tmp import drop_tmp_path  # noqa: F401 (an autouse fixture)
 
 TOL = 1e-5  # x max|output|: fp32, the order of sums apart
 

@@ -15,6 +15,7 @@ where no draw enters (the e4e one-shot latents) to the JAX CLI's output.
 """
 
 import os
+import shutil
 import subprocess
 import sys
 
@@ -39,10 +40,12 @@ from ide3d_tpu_torch.io.from_jax import load_jax_params
 from ide3d_tpu_torch.models.arcface import reset_norms
 from ide3d_tpu_torch.models.e4e import E4eEncoder
 from ide3d_tpu_torch.models.generator import GeneratorConfig, Ide3dGenerator
+from ide3d_tpu_torch.parallel import mesh
 from ide3d_tpu_torch.render.renderer import RenderParams
 from ide3d_tpu_torch.train import losses as L
 from ide3d_tpu_torch.train import pti
 from torch_threads import module_one_intra_op_thread  # noqa: F401 (an autouse fixture)
+from torch_tmp import drop_tmp_path  # noqa: F401 (an autouse fixture)
 
 TINY = dict(img_resolution=32, render_size=8, plane_resolution=16, channel_base=512,
             channel_max=32, sr_channel_base=256, sr_channel_max=16, feature_channels=8,
@@ -514,11 +517,13 @@ def e4e_ckpt(tmp_path_factory):
             elif name.endswith("bias"):
                 p.zero_()
         reset_norms(e)
-    path = str(tmp_path_factory.mktemp("e4e") / "e4e.pt")
+    folder = tmp_path_factory.mktemp("e4e")
+    path = str(folder / "e4e.pt")
     torch.save({"state_dict": {f"encoder.{k}": v for k, v in e.state_dict().items()},
                 "latent_avg": torch.linspace(-0.5, 0.5, 512),
                 "opts": argparse.Namespace(encoder_type="Encoder4Editing")}, path)
-    return path
+    yield path
+    shutil.rmtree(folder, ignore_errors=True)  # ~200 MB; tests/torch_tmp.py says why
 
 
 def test_latent_creator_e4e_matches_jax_and_projects(tmp_path, e4e_ckpt):
@@ -609,6 +614,10 @@ def test_inversion_entry_points_reach_the_cpu_only_when_asked(monkeypatch, tmp_p
         raise _Stop
 
     monkeypatch.setattr(common, "load_generator", fake_load)
+    # The data-parallel CLIs load on their rank's device: a group of one on the
+    # device type the CLI asks for (here without a process group)
+    monkeypatch.setattr(mesh, "launch", lambda fn, world, device_type, *args, **kw:
+                        fn(mesh.Group(device=torch.device(device_type)), *args))
     imgs = _write_images(str(tmp_path), 1)
     runs = {
         run_pti: ["--network", "x", "--images", imgs, "--outdir", "o"],

@@ -29,6 +29,7 @@ from ide3d_tpu_torch.io import torch_import
 from ide3d_tpu_torch.io.checkpoint import save_checkpoint
 from ide3d_tpu_torch.io.from_jax import load_jax_params
 from ide3d_tpu_torch.models.generator import GeneratorConfig, Ide3dGenerator
+from ide3d_tpu_torch.parallel import mesh
 from ide3d_tpu_torch.render.camera import CANONICAL_POSE_25
 from ide3d_tpu_torch.render.renderer import RenderParams
 from ide3d_tpu_torch.utils import marching as tmarching
@@ -237,6 +238,10 @@ def test_entry_points_reach_the_cpu_only_when_asked(monkeypatch, tmp_path):
         raise _Stop
 
     monkeypatch.setattr(tcommon, "load_generator", fake_load)
+    # The data-parallel CLIs load on their rank's device: a group of one on the
+    # device type the CLI asks for (here without a process group)
+    monkeypatch.setattr(mesh, "launch", lambda fn, world, device_type, *args, **kw:
+                        fn(mesh.Group(device=torch.device(device_type)), *args))
     calls = {
         gen_videos.main: ["--network", "x", "--seeds", "0", "--output", str(tmp_path / "v.mp4")],
         extract_shapes.main: ["--network", "x", "--seeds", "0", "--outdir", str(tmp_path)],

@@ -34,6 +34,7 @@ from ide3d_tpu_torch.io import load_torch_state_dict
 from ide3d_tpu_torch.io.from_jax import load_jax_params
 from test_mtcnn import onet_sd, pnet_sd, rnet_sd
 from torch_threads import module_one_intra_op_thread  # noqa: F401 (an autouse fixture)
+from torch_tmp import drop_tmp_path  # noqa: F401 (an autouse fixture)
 
 NET_TOL = 1e-5
 

@@ -31,6 +31,7 @@ from ide3d_tpu_torch.models.discriminator import Discriminator
 from ide3d_tpu_torch.models.stylegan2 import StyleGan2Generator
 from test_tf_legacy import G_CFG, RES, W, _install_tflib_shim, _make_tf_pickle, _tf_g_variables
 from torch_threads import module_one_intra_op_thread  # noqa: F401 (an autouse fixture)
+from torch_tmp import drop_tmp_path  # noqa: F401 (an autouse fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 1e-5

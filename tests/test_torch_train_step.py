@@ -20,6 +20,7 @@ from ide3d_tpu_torch.models.generator import Ide3dGenerator
 from ide3d_tpu_torch.parallel.stats import StatsAccumulator
 from ide3d_tpu_torch.train import gan
 from torch_threads import module_one_intra_op_thread  # noqa: F401 (an autouse fixture)
+from torch_tmp import drop_tmp_path  # noqa: F401 (an autouse fixture)
 
 TINY_D = dict(img_resolution=32, img_channels=25, channel_base=512, channel_max=32,
               dtype="float32")

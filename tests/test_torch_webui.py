@@ -16,6 +16,7 @@ from ide3d_tpu_torch.apps import web_ui
 from ide3d_tpu_torch.apps.painter import free_view_trajectory
 from ide3d_tpu_torch.utils.seg import COLOR_MAP
 from torch_threads import module_one_intra_op_thread  # noqa: F401 (an autouse fixture)
+from torch_tmp import drop_tmp_path  # noqa: F401 (an autouse fixture)
 
 R = 64
 
