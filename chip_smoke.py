@@ -4,8 +4,8 @@ metric suite, inversion, latent editing, real-photo preprocessing, the
 legacy checkpoint import, the optional architectures (the hybrid feature
 volume, the SG3 superres, the built-in encoder, fine_steps), the
 trainer's last features (path-length regularization through K1's double
-backward, wavelet ADA), the trained-weight tools and data parallelism over
-every card at the flagship width.
+backward, wavelet ADA), the trained-weight tools, data parallelism over
+every card at the flagship width, the serving artifact and the host loader.
 
     python3 chip_smoke.py
 
@@ -263,6 +263,25 @@ Phases, one line each; any failure ends the run with a non-zero exit:
                tensor's max, the parameters within 1e-5 x max where the
                gradient is above 1e-3 of its tensor's max, K1 (2, 3, 1) per
                rank, the replicas bit-equal. A rank that fails fails the run.
+ 17. serving - the serving artifact and the host loader. apps.export_model.main
+               --network random:0 --batch 3 --num-steps 96 --platforms cuda
+               (torch.export of the flagship's mapping and frame, K1 as the
+               operator ide3d_tpu_torch::sort_integrate), load_artifact(device=
+               "cuda"): the exported frame at phase 5's three yaws launches K1
+               exactly once, its ws equal G.mapping's (<= 1e-5) and its img
+               within 1 uint8 level of G.synthesis (max abs err and the share
+               of seg argmax pixels that agree printed); the exported and the
+               eager frame by CUDA events in turns, 12 each; the export and load
+               seconds and the .pt2 sizes. K1's operator against the direct
+               launch on the eager path in turns: K1's eager event and host ms
+               at B=1, a B=1 frame's event ms, a Painter cached view's wall ms
+               through PainterWebApp.handle (K1 once a view). The host ops'
+               route must be "native"; PrefetchLoader at batch 4 and 4 threads
+               on 8 views at 512² from tools/torch_make_synthetic_dataset.py
+               (xflip): batches/s on the native and the numpy route, 5
+               one-thread batches equal between them, then prefetch_to_device
+               over those 5: it ends, every tensor on cuda:0 and equal to its
+               host batch.
 Then one JSON line with the kernels, and last {"ok": true, "device": {...}}.
 In that line K1's `ms` and `plain_ms` are device times per call at B=3 from
 the CUDA graphs; `eager_ms` is the time between CUDA events around one eager
@@ -300,7 +319,10 @@ with gg_a misaligned. Phase 15 adds `tools_launches` (per tool run) and
 the three entries (per path, a list of the ranks' counts, and the world
 size), `parallel_max_abs_err` (each rank-0 sharded frame's K1 inputs through
 kernel and plain) to K1's and `parallel_step_ms` (the medians of the
-data-parallel and the plain step in turns) to the backward's.
+data-parallel and the plain step in turns) to the backward's. Phase 17 adds
+`export_launches` (the exported frame's K1 count), `exported_frame_ms` and
+`eager_frame_ms` (medians in turns, batch 3) and `op_dispatch` (medians per
+route) to K1's entry.
 """
 
 from __future__ import annotations
@@ -5030,6 +5052,259 @@ def phase16_alone() -> dict:
     return phase_parallel(smi.splitlines()[0], video.pop("frames"))
 
 
+SERVE_BATCH = 3  # the exported frame's batch: phase 5's three yaws
+SERVE_TURNS = ("exported", "eager", "eager", "exported") * 3  # 12 frames of each, in turns
+OP_TURNS = ("op", "direct", "direct", "op") * 3  # K1's dispatch: the operator, the direct launch
+LOADER_BATCH, LOADER_THREADS, LOADER_BATCHES = 4, 4, 24  # PrefetchLoader's rate, per route
+LOADER_EQUAL_BATCHES = 5  # num_threads=1 batches compared between the routes, then prefetched
+
+
+def _event_ms(fn) -> float:
+    """CUDA-event ms of one call, the card idle before it."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def serving_export(root: str) -> dict:
+    """The flagship through apps/export_model.main --platforms cuda at batch 3,
+    loaded back; the exported frame against G.synthesis and timed beside it."""
+    from ide3d_tpu_torch.apps import export_model, gen_images
+    from ide3d_tpu_torch.io.export import load_artifact
+    from ide3d_tpu_torch.models.generator import GeneratorConfig, Ide3dGenerator
+
+    out = os.path.join(root, "artifact")
+    t0 = time.perf_counter()
+    rc = export_model.main(["--network", "random:0", "--outdir", out, "--batch", str(SERVE_BATCH),
+                            "--num-steps", "96", "--platforms", "cuda", "--device", "cuda"])
+    export_s = time.perf_counter() - t0
+    files = sorted(os.listdir(out))
+    if rc != 0 or files != ["frame.cuda.pt2", "mapping.cuda.pt2", "meta.json"]:
+        raise RuntimeError(f"export_model: rc {rc}, wrote {files}")
+    mb = {f: os.path.getsize(os.path.join(out, f)) / 1e6 for f in files if f.endswith(".pt2")}
+    t0 = time.perf_counter()
+    art = load_artifact(out, device="cuda")
+    load_s = time.perf_counter() - t0
+
+    cfg = GeneratorConfig()
+    G = Ide3dGenerator(cfg).init(seed=0).to("cuda").eval()  # the weights of random:0
+    rp = dataclasses.replace(cfg.render, num_steps=96)
+    z = torch.randn(SERVE_BATCH, cfg.z_dim, generator=torch.Generator().manual_seed(0)).cuda()
+    cams = gen_images.yaw_cameras("cuda")
+    ws = art.map_z(z, cams)
+    with torch.inference_mode():
+        ws_ref = G.mapping(z, cams)
+    art.render(ws, cams)  # warm-up
+    torch.cuda.synchronize()
+    zero_k1_counts()
+    img, seg = art.render(ws, cams)
+    torch.cuda.synchronize()
+    launches = k1_counts()
+    with torch.inference_mode():
+        ref_img, ref_seg = G.synthesis(ws, cams, render_params=rp, return_seg=True)
+    R = cfg.img_resolution
+    for name, t, shape in (("img", img, (SERVE_BATCH, R, R, 3)), ("seg", seg, (SERVE_BATCH, R, R, 19))):
+        if tuple(t.shape) != shape:
+            raise RuntimeError(f"exported frame: {name} {tuple(t.shape)}, want {shape}")
+    _check_finite("exported frame", (ws, img, seg))
+    if launches != (1, 0, 0):
+        raise RuntimeError(f"exported frame: K1 (forward, backward, double backward) {launches}, "
+                           f"want (1, 0, 0)")
+    err = {"ws": float((ws - ws_ref).abs().max()), "img": float((img - ref_img).abs().max()),
+           "seg": float((seg - ref_seg).abs().max()),
+           "img_uint8_levels": int(np.abs(_u8(img) - _u8(ref_img)).max()),
+           "seg_argmax_agree": float((seg.argmax(-1) == ref_seg.argmax(-1)).float().mean())}
+    if err["ws"] > 1e-5 or err["img_uint8_levels"] > 1:
+        raise RuntimeError(f"exported frame vs G.mapping / G.synthesis: {err}")
+
+    def eager():
+        with torch.inference_mode():
+            G.synthesis(ws, cams, render_params=rp, return_seg=True)
+
+    ms = {"exported": [], "eager": []}
+    for kind in SERVE_TURNS:
+        ms[kind].append(_event_ms(lambda: art.render(ws, cams) if kind == "exported" else eager()))
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    print(f"serving: apps.export_model --network random:0 --batch {SERVE_BATCH} --num-steps 96 "
+          f"--platforms cuda in {export_s:.1f} s ({', '.join(f'{k} {v:.2f} MB' for k, v in mb.items())}); "
+          f"load_artifact(device='cuda') {load_s:.1f} s; the exported frame at the three yaws: "
+          f"K1 {launches}, vs G.mapping / G.synthesis {err}; CUDA-event ms in turns, medians of "
+          f"{len(ms['exported'])}: exported {med['exported']:.3f}, eager {med['eager']:.3f} "
+          f"(exported {[round(t, 3) for t in ms['exported']]}, eager "
+          f"{[round(t, 3) for t in ms['eager']]})", flush=True)
+    return {"export_s": export_s, "load_s": load_s, "mb": mb, "launches": launches[0],
+            "err": err, "exported_ms": med["exported"], "eager_ms": med["eager"], "G": G}
+
+
+def op_dispatch(G) -> dict:
+    """The eager card path through K1's operator against its direct launch
+    (the port's), in turns: K1's eager host and event ms at B=1, a B=1
+    frame's event ms, and the wall ms of a Painter cached view through
+    PainterWebApp.handle."""
+    from ide3d_tpu_torch.apps.painter import PainterSession
+    from ide3d_tpu_torch.apps.web_ui import PainterWebApp
+    from ide3d_tpu_torch.models.encoder import HybridEncoder
+    from ide3d_tpu_torch.ops import ray_march
+    from ide3d_tpu_torch.render.camera import CANONICAL_POSE_25
+
+    R, n_geo = G.cfg.img_resolution, G.synthesis.num_ws_geo
+    E = HybridEncoder(size=R, n_latents_app=G.num_ws - n_geo, n_latents_geo=n_geo,
+                      dtype=G.cfg.dtype).init(seed=1)
+    app = PainterWebApp(PainterSession(G=G, E=E.to("cuda").eval(), device="cuda"))
+    status, _, _ = app.handle("POST", "/api/seed", {}, json.dumps({"seed": 3, "trunc": 0.7}).encode())
+    if status != 200:
+        raise RuntimeError(f"op dispatch: seed request status {status}")
+    rp = dataclasses.replace(G.cfg.render, num_steps=96)
+    cs = torch.as_tensor(CANONICAL_POSE_25, device="cuda")[None]
+    with torch.inference_mode():
+        ws = G.mapping(torch.randn(1, G.z_dim, generator=torch.Generator().manual_seed(1)).cuda(), cs)
+    args = k1_inputs(torch.Generator().manual_seed(0), torch.bfloat16, B=1, sorted_halves=True)
+
+    def view():
+        t0 = time.perf_counter()
+        status, _, _ = app.handle("GET", "/api/view", {"yaw": "0.3"}, b"")
+        if status != 200:
+            raise RuntimeError(f"op dispatch: view request status {status}")
+        return (time.perf_counter() - t0) * 1e3
+
+    def frame():
+        with torch.inference_mode():
+            G.synthesis(ws, cs, render_params=rp)
+
+    def k1():
+        with torch.inference_mode():
+            ray_march.sort_integrate(*args)
+
+    routes = {"op": ray_march.OP, "direct": ray_march._launch_forward}  # OP's kernel: the latter
+    rows = {k: {"k1_event_ms": [], "k1_host_ms": [], "frame_b1_ms": [], "view_wall_ms": []}
+            for k in routes}
+    try:
+        for kind in ("op", "direct"):  # warm-up of each route
+            ray_march._launch_forward = routes[kind]
+            view(), frame(), k1()
+        for kind in OP_TURNS:
+            ray_march._launch_forward = routes[kind]
+            ev, host = eager_ms(k1)
+            rows[kind]["k1_event_ms"].append(ev)
+            rows[kind]["k1_host_ms"].append(host)
+            rows[kind]["frame_b1_ms"].append(statistics.median(_event_ms(frame) for _ in range(5)))
+            zero_k1_counts()
+            rows[kind]["view_wall_ms"].append(statistics.median(view() for _ in range(3)))
+            if k1_counts() != (3, 0, 0):
+                raise RuntimeError(f"op dispatch ({kind}): K1 {k1_counts()} over 3 cached views")
+    finally:
+        ray_march._launch_forward = routes["direct"]
+    med = {k: {m: statistics.median(v) for m, v in r.items()} for k, r in rows.items()}
+    print(f"serving: K1's operator against the direct launch on the eager path, "
+          f"{len(OP_TURNS) // 2} turns each, medians {json.dumps(med)} (every turn "
+          f"{json.dumps({k: {m: [round(x, 4) for x in v] for m, v in r.items()} for k, r in rows.items()})})",
+          flush=True)
+    return med
+
+
+def host_loader(root: str) -> dict:
+    """PrefetchLoader on 512² views on the native and the numpy route, and
+    prefetch_to_device over a finite run of its batches."""
+    import threading
+
+    from ide3d_tpu_torch.data import CameraLabeledDataset, PrefetchLoader, _native
+    from ide3d_tpu_torch.parallel.mesh import prefetch_to_device
+
+    if _native.route() != "native":
+        raise RuntimeError(f"host ops: the numpy route runs: {_native.build_error()}")
+    data = os.path.join(root, "sphere")
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "tools/torch_make_synthetic_dataset.py", "--out", data,
+                    "--identities", "4", "--views", "2", "--resolution", "512"],
+                   check=True, capture_output=True, text=True, timeout=300)
+    data_s = time.perf_counter() - t0
+    ds = CameraLabeledDataset(os.path.join(data, "img"), os.path.join(data, "seg"), xflip=True)
+    native_lib = _native._lib
+
+    def numpy_route(on: bool):
+        _native._lib = (lambda: None) if on else native_lib
+
+    rate, equal = {}, {}
+    try:
+        for route in ("native", "numpy"):
+            numpy_route(route == "numpy")
+            loader = PrefetchLoader(ds, LOADER_BATCH, seed=0, num_threads=LOADER_THREADS)
+            try:
+                next(loader)  # the threads started
+                t0 = time.perf_counter()
+                for _ in range(LOADER_BATCHES):
+                    next(loader)
+                rate[route] = LOADER_BATCHES / (time.perf_counter() - t0)
+            finally:
+                loader.close()
+            loader = PrefetchLoader(ds, LOADER_BATCH, seed=1, num_threads=1)
+            try:
+                equal[route] = [next(loader) for _ in range(LOADER_EQUAL_BATCHES)]
+            finally:
+                loader.close()
+    finally:
+        numpy_route(False)
+    host = equal["native"]
+    for a, b in zip(host, equal["numpy"]):
+        if sorted(a) != ["c", "img", "seg"] or any(not np.array_equal(a[k], b[k]) for k in a):
+            raise RuntimeError("host ops: the native and numpy routes' batches differ")
+    b0 = host[0]
+    if b0["img"].shape != (LOADER_BATCH, 512, 512, 3) or b0["seg"].shape != (LOADER_BATCH, 512, 512, 19) \
+            or not np.isfinite(b0["img"]).all() or set(np.unique(b0["seg"])) != {-1.0, 1.0}:
+        raise RuntimeError(f"host loader: batch img {b0['img'].shape} seg {b0['seg'].shape}")
+
+    got = []
+    t0 = time.perf_counter()
+    worker = threading.Thread(target=lambda: got.extend(prefetch_to_device(iter(host), "cuda")),
+                              daemon=True)
+    worker.start()
+    worker.join(timeout=120)
+    prefetch_s = time.perf_counter() - t0
+    if worker.is_alive():
+        raise RuntimeError("prefetch_to_device did not end on a finite loader")
+    torch.cuda.synchronize()
+    if len(got) != len(host):
+        raise RuntimeError(f"prefetch_to_device yielded {len(got)} of {len(host)} batches")
+    for dev, h in zip(got, host):
+        for k, v in h.items():
+            if dev[k].device != torch.device("cuda", 0) or not torch.equal(dev[k].cpu(),
+                                                                           torch.from_numpy(v)):
+                raise RuntimeError(f"prefetch_to_device: {k} on {dev[k].device}, or not the host batch")
+    print(f"serving: host ops route {_native.route()}; tools/torch_make_synthetic_dataset.py 8 "
+          f"views at 512² in {data_s:.1f} s; PrefetchLoader batch {LOADER_BATCH}, "
+          f"{LOADER_THREADS} threads, xflip: {rate['native']:.2f} batches/s native, "
+          f"{rate['numpy']:.2f} numpy ({LOADER_BATCHES} batches each); {LOADER_EQUAL_BATCHES} "
+          f"one-thread batches equal between the routes; prefetch_to_device over them ended in "
+          f"{prefetch_s:.2f} s, every tensor on cuda:0 and equal to its host batch", flush=True)
+    return {"batches_per_s": rate, "prefetch_s": prefetch_s}
+
+
+def phase_serving(smi: str) -> dict:
+    """Phase 17 (see the module's docstring)."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        out = serving_export(root)
+        out["op"] = op_dispatch(out.pop("G"))
+        out["loader"] = host_loader(root)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"serving: phase 17 in {out['wall_s']:.1f} s ({smi})", flush=True)
+    return out
+
+
+def phase17_alone() -> dict:
+    """Phase 17 on its own (device, build):
+    `python3 -c "import chip_smoke as cs; cs.phase17_alone()"`."""
+    smi = phase_device()
+    phase_build()
+    return phase_serving(smi.splitlines()[0])
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
@@ -5048,6 +5323,7 @@ def main() -> None:
     par = phase_parity(smi.splitlines()[0])
     tools = phase_tools(smi.splitlines()[0])
     dp = phase_parallel(smi.splitlines()[0], off["video"]["flagship"].pop("frames"))
+    serve = phase_serving(smi.splitlines()[0])
     off["video"]["ref_compat"].pop("frames")
     main_path, b1 = k["timing"][3], k["timing"][1]  # the frame runs K1 at B=3
     kb = tr["k1_backward"]
@@ -5106,6 +5382,10 @@ def main() -> None:
         "tools_max_abs_err": {"eval_trained_encoder_b8": tools["eval"]["k1_err"]},
         "parallel_launches": parallel_launches(dp, 0),
         "parallel_max_abs_err": {k: v["k1_err"] for k, v in dp["ranks"][0]["frames"].items()},
+        "export_launches": serve["launches"],
+        "exported_frame_ms": serve["exported_ms"],
+        "eager_frame_ms": serve["eager_ms"],
+        "op_dispatch": serve["op"],
     }, {
         "name": "sort_integrate_backward",
         "route": "cuda",

@@ -20,12 +20,14 @@ module layout and names so that each module's counterpart is easy to find:
            losses, styleclip (the mapper step, latent optimization), nada
   parallel/ stats (StatsAccumulator)
   data/    dataset (image + seg + camera label folders, infinite_loader),
-           preprocess (the FFHQ pose math and the POS-aligned crop)
+           preprocess (the FFHQ pose math and the POS-aligned crop),
+           prefetch (PrefetchLoader: threads over _native's C++ host ops)
   io/      from_jax: the JAX parameter tree -> this package's modules;
            checkpoint: torch-native train-state snapshots; torch_import:
            reference .pkl checkpoints -> this package's G, D and E, .pt /
            .pth state dicts and e4e files read without running their
-           pickles, BiSeNet weights; tf_legacy: TF1-era (G, D, Gs) pickles
+           pickles, BiSeNet weights; tf_legacy: TF1-era (G, D, Gs) pickles;
+           export: the serving artifact (torch.export programs)
   utils/   seg (the 19-class palette), marching (marching tetrahedra)
   apps/    gen_images, painter, web_ui, train_gan, gen_videos,
            extract_shapes, render_mesh, avg_spectra, calc_metrics, run_pti,
@@ -33,8 +35,10 @@ module layout and names so that each module's counterpart is easy to find:
            finetune_hybrid_encoder, calc_losses_on_images, styleclip_edit,
            train_styleclip_mapper, train_nada, edit_comparison,
            experiment_runner, viz_renderer, infer_face_animation,
-           converter_log_to_video, preprocess_in_the_wild, dataset_tool
-  csrc/    CUDA C++ sources, compiled with nvcc at first use (see _build.py)
+           converter_log_to_video, preprocess_in_the_wild, dataset_tool,
+           export_model
+  csrc/    CUDA C++ sources, compiled with nvcc at first use (see _build.py;
+           data/_native/host_ops.cpp goes through g++ the same way)
 
 Inside the conv stacks activations are NCHW and conv weights OIHW; the public
 functions of the renderer and generator keep the JAX layouts (rays [B,R,S,C],

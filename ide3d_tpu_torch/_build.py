@@ -1,10 +1,11 @@
-"""Build the CUDA sources under csrc/ into shared libraries, at first use.
+"""Build the native sources into shared libraries, at first use.
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled by nvcc for
 Hopper (`sm_90a`) into `build/ide3d_tpu_torch/lib<name>-<hash>.so` at the root
-of the checkout, then loaded with ctypes. The hash is taken over the source,
-so an edited source is rebuilt and an unchanged one is reused. Nothing is
-built when this module is imported.
+of the checkout, then loaded with ctypes. Host C++ sources (the loader's
+`data/_native/host_ops.cpp`) go the same way through g++. The hash is taken
+over the source and the flags, so an edited source is rebuilt and an
+unchanged one is reused. Nothing is built when this module is imported.
 """
 
 from __future__ import annotations
@@ -24,6 +25,10 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+# No -march=native: build/ sits in the checkout, and a library built for one
+# host's CPU can take SIGILL on another. No contraction into FMAs, so the host
+# ops round as their numpy route does.
+GXX_FLAGS = ["-std=c++17", "-O3", "-shared", "-fPIC", "-ffp-contract=off"]
 
 
 def _nvcc() -> str:
@@ -37,15 +42,20 @@ def _nvcc() -> str:
     return path
 
 
-def build(name: str) -> tuple[Path, str]:
-    """Compile csrc/<name>.cu unless a library of the same source hash exists.
+def _gxx() -> str:
+    found = shutil.which("g++")
+    if not found:
+        raise FileNotFoundError("g++ not found on PATH")
+    return found
 
-    Returns (library path, compiler log); the log is empty when the library
-    was already built. Raises RuntimeError with nvcc's output if it fails.
-    """
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"lib{name}-{digest}.so"
+
+def _compile(src: Path, compiler, flags: list) -> tuple[Path, str]:
+    """Compile `src` with `compiler()` and `flags` unless a library of the same
+    source and flags hash exists. Returns (library path, compiler log); the
+    log is empty when the library was already built. Raises RuntimeError with
+    the compiler's output if it fails."""
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    lib = BUILD_DIR / f"lib{src.stem}-{digest}.so"
     if lib.exists():
         return lib, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -53,17 +63,27 @@ def build(name: str) -> tuple[Path, str]:
     os.close(fd)
     try:
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+            [compiler(), *flags, "-o", tmp, str(src)],
             capture_output=True, text=True, check=False,
         )
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src} (rc {proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
+            raise RuntimeError(f"{Path(proc.args[0]).name} failed on {src} "
+                               f"(rc {proc.returncode}):\n{proc.stdout}{proc.stderr}")
         os.replace(tmp, lib)  # atomic: a concurrent process never loads a partial file
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
     return lib, proc.stdout + proc.stderr
+
+
+def build(name: str) -> tuple[Path, str]:
+    """Compile csrc/<name>.cu with nvcc (see `_compile`)."""
+    return _compile(CSRC / f"{name}.cu", _nvcc, NVCC_FLAGS)
+
+
+def build_host(src: Path) -> tuple[Path, str]:
+    """Compile the host C++ source `src` with g++ (see `_compile`)."""
+    return _compile(Path(src), _gxx, GXX_FLAGS)
 
 
 @functools.cache

@@ -1,5 +1,6 @@
 """io layer of the PyTorch port (see the package docstring)."""
 
+from .export import export_generator, load_artifact
 from .torch_import import (
     ImportReport,
     import_bisenet,

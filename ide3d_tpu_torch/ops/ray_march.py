@@ -17,6 +17,15 @@ entry point:
   * on CPU tensors it runs `sort_integrate_plain`, the plain PyTorch version
     with the kernel's semantics, and autograd differentiates that.
 
+The forward is also the operator `torch.ops.ide3d_tpu_torch.sort_integrate`
+(`OP`; CUDA: the kernel's launch, CPU: `sort_integrate_plain`, and a fake
+implementation that gives the outputs' shapes). While `torch.export` traces
+(io/export.py), `sort_integrate` goes through the operator on both devices,
+so an exported program records K1 as one node and runs the kernel, or on the
+CPU the plain version, when it is called. The eager card path launches the
+kernel directly: the operator's dispatch costs host time a call. Importing
+this module registers the operator; a loaded program needs it.
+
 The samples come as two halves (the coarse and the fine pass), so the merged
 tensor is never written; the halves' depths need not be sorted or disjoint.
 Semantics: stable depth sort (ties by index, the first half before the
@@ -227,6 +236,31 @@ def _launch_forward(z_a, vals_a, z_b, vals_b, ray_norm, noise, clamp_mode, last_
     return feat, depth, wsum
 
 
+@torch.library.custom_op(
+    "ide3d_tpu_torch::sort_integrate", mutates_args=(), device_types="cpu",
+    schema="(Tensor z_a, Tensor vals_a, Tensor z_b, Tensor vals_b, Tensor ray_norm, "
+           "Tensor? noise, str clamp_mode, bool last_back, bool white_back) "
+           "-> (Tensor, Tensor, Tensor)")
+def _sort_integrate_op(z_a, vals_a, z_b, vals_b, ray_norm, noise, clamp_mode, last_back,
+                       white_back):
+    """K1's forward as an operator; on the CPU the plain version."""
+    return sort_integrate_plain(z_a, vals_a, z_b, vals_b, ray_norm, noise=noise,
+                                clamp_mode=clamp_mode, last_back=last_back, white_back=white_back)
+
+
+_sort_integrate_op.register_kernel("cuda")(_launch_forward)
+
+
+@_sort_integrate_op.register_fake
+def _(z_a, vals_a, z_b, vals_b, ray_norm, noise, clamp_mode, last_back, white_back):
+    _check(z_a, vals_a, z_b, vals_b, ray_norm, noise, clamp_mode)
+    B, R, _, c1 = vals_a.shape
+    return (z_a.new_empty(B, R, c1 - 1), z_a.new_empty(B, R, 1), z_a.new_empty(B, R, 1))
+
+
+OP = torch.ops.ide3d_tpu_torch.sort_integrate.default
+
+
 def _check_cotangents(vals_a, g_feat, g_depth, g_wsum) -> None:
     B, R, _, c1 = vals_a.shape
     dev = vals_a.device
@@ -394,8 +428,10 @@ class _SortIntegrateBackwardFn(torch.autograd.Function):
 
 
 class _SortIntegrateFn(torch.autograd.Function):
-    """K1 on the card with its hand-written backward: gradients for the two
-    value slabs only, differentiable once more (`_SortIntegrateBackwardFn`).
+    """K1 on the card with its hand-written backward (and on either device
+    while `torch.export` traces, its forward then K1's operator): gradients
+    for the two value slabs only, differentiable once more
+    (`_SortIntegrateBackwardFn`).
     The depths, |ray_d| and the noise are constants of the composite (the JAX
     render stop-gradients its importance depths)."""
 
@@ -406,8 +442,8 @@ class _SortIntegrateFn(torch.autograd.Function):
                            ("noise", needs[5])):
             if need:
                 raise ValueError(f"sort_integrate has no gradient for {name}; detach it")
-        out = _launch_forward(z_a, vals_a, z_b, vals_b, ray_norm, noise, clamp_mode, last_back,
-                              white_back)
+        launch = OP if torch.compiler.is_exporting() else _launch_forward
+        out = launch(z_a, vals_a, z_b, vals_b, ray_norm, noise, clamp_mode, last_back, white_back)
         ctx.save_for_backward(z_a, vals_a, z_b, vals_b, ray_norm, noise)
         ctx.opts = dict(clamp_mode=clamp_mode, last_back=last_back, white_back=white_back)
         return out
@@ -436,12 +472,13 @@ def sort_integrate(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K1 on the tensors' device: the CUDA kernel on CUDA (differentiable in
     the values through `sort_integrate_backward`), the plain version on the
-    CPU. Returns (features [B,R,C], depth [B,R,1], weights_sum [B,R,1]) in fp32."""
-    if z_a.device.type == "cpu":
+    CPU (through the operator while `torch.export` traces). Returns (features
+    [B,R,C], depth [B,R,1], weights_sum [B,R,1]) in fp32."""
+    if z_a.device.type == "cpu" and not torch.compiler.is_exporting():
         return sort_integrate_plain(z_a, vals_a, z_b, vals_b, ray_norm, noise=noise,
                                     clamp_mode=clamp_mode, last_back=last_back,
                                     white_back=white_back)
-    if z_a.device.type != "cuda":
+    if z_a.device.type not in ("cuda", "cpu"):
         raise NotImplementedError(f"sort_integrate has no kernel for {z_a.device}")
     return _SortIntegrateFn.apply(z_a, vals_a, z_b, vals_b, ray_norm, noise, clamp_mode,
                                   last_back, white_back)

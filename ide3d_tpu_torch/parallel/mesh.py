@@ -376,11 +376,12 @@ def prefetch_to_device(loader: Iterable[dict], device) -> Iterator[dict]:
     overlaps the running step: a worker thread pins each batch and copies it
     on a side CUDA stream, PREFETCH_DEPTH batches ahead; the consumer's
     stream waits on the copy's event. On the CPU the batches are only made
-    tensors. The loader's exceptions re-raise in the consumer; closing the
-    generator stops the worker."""
+    tensors. The generator ends when the loader does; the loader's exceptions
+    re-raise in the consumer; closing the generator stops the worker."""
     device = torch.device(device)
     q: "queue.Queue" = queue.Queue(maxsize=PREFETCH_DEPTH)
     stop = threading.Event()
+    end = object()  # put after the loader's last batch
 
     def put(item) -> bool:
         while not stop.is_set():
@@ -407,6 +408,7 @@ def prefetch_to_device(loader: Iterable[dict], device) -> Iterator[dict]:
                     item = (dev, ready)
                 if not put(item):
                     return
+            put(end)
         except BaseException as e:  # re-raised on the consumer's thread
             put(e)
 
@@ -415,6 +417,8 @@ def prefetch_to_device(loader: Iterable[dict], device) -> Iterator[dict]:
     try:
         while True:
             item = q.get()
+            if item is end:
+                return
             if isinstance(item, BaseException):
                 raise item
             batch, ready = item

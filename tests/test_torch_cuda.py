@@ -343,3 +343,29 @@ def test_k1_autograd_refuses_depth_gradients_on_card():
     assert feat.grad_fn is not None
     with pytest.raises(ValueError):
         ray_march.sort_integrate(z.requires_grad_(), v, z.detach(), v, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise", [False, True])
+def test_k1_operator_launches_the_kernel_on_card(noise):
+    """K1's operator (what a torch.export program calls) on CUDA tensors
+    launches the kernel once a call and equals sort_integrate; opcheck holds
+    its schema and fake shapes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.RandomState(5)
+    B, R, sa, sb, c1 = 2, 40, 12, 20, 9
+    args = []
+    for s in (sa, sb):
+        args += [t(rng.rand(B, R, s, 1).astype(np.float32) * 1.05 + 2.25).cuda(),
+                 t(rng.randn(B, R, s, c1).astype(np.float32)).to("cuda", torch.bfloat16)]
+    args.append(t(rng.rand(B, R, 1).astype(np.float32) + 0.5).cuda())
+    nz = t(rng.randn(B, R, sa + sb).astype(np.float32)).cuda() if noise else None
+    before = ray_march.sort_integrate.launches
+    got = ray_march.OP(*args, nz, "softplus", True, False)
+    assert ray_march.sort_integrate.launches == before + 1
+    want = ray_march.sort_integrate(*args, noise=nz, last_back=True)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and torch.isfinite(g).all()
+        assert torch.equal(g, w)
+    torch.library.opcheck(ray_march.OP, (*args, nz, "relu", False, True))
