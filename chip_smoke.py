@@ -5,7 +5,9 @@ legacy checkpoint import, the optional architectures (the hybrid feature
 volume, the SG3 superres, the built-in encoder, fine_steps), the
 trainer's last features (path-length regularization through K1's double
 backward, wavelet ADA), the trained-weight tools, data parallelism over
-every card at the flagship width, the serving artifact and the host loader.
+every card at the flagship width, the serving artifact, the host loader, and
+TRAINING.md's flagship training run B through tools/torch_trained_workflow.py
+at cut counts.
 
     python3 chip_smoke.py
 
@@ -282,6 +284,20 @@ Phases, one line each; any failure ends the run with a non-zero exit:
                one-thread batches equal between them, then prefetch_to_device
                over those 5: it ends, every tensor on cuda:0 and equal to its
                host batch.
+ 18. flagship run - tools/torch_trained_workflow.py --run flagship (TRAINING.md's
+               run B) as a user runs it, at cut counts: 8 views at 512² from
+               tools/torch_make_synthetic_dataset.py; the k1 stage (one
+               flagship train step at batch 4 on a dataset batch: K1 (1, 1, 0)
+               counted in that step, from counts set to 0 just before it; K1
+               on the step's own bf16 inputs (4, 4096, 96, 52) x 2 against
+               plain (<= 1e-3) and its backward on the step's own cotangents
+               against autograd through plain (<= 1e-2 x max|grad|)); train_gan
+               --preset full --resolution 512 --batch 4 (the CLI's γ 13.1, PL
+               off) to 0.05 kimg with pixel FID on 32 items, and its --resume
+               to 0.1 kimg into the same run directory: every stats row and FID
+               line finite, leg 2's rows and FID line appended to leg 1's, the
+               resumed ada_p leg 1's last within one controller update, the
+               grids written. The stage walls and the phase's are printed.
 Then one JSON line with the kernels, and last {"ok": true, "device": {...}}.
 In that line K1's `ms` and `plain_ms` are device times per call at B=3 from
 the CUDA graphs; `eager_ms` is the time between CUDA events around one eager
@@ -322,7 +338,9 @@ kernel and plain) to K1's and `parallel_step_ms` (the medians of the
 data-parallel and the plain step in turns) to the backward's. Phase 17 adds
 `export_launches` (the exported frame's K1 count), `exported_frame_ms` and
 `eager_frame_ms` (medians in turns, batch 3) and `op_dispatch` (medians per
-route) to K1's entry.
+route) to K1's entry. Phase 18 adds `flagship_run_launches` (the k1 stage's
+train step) to K1's entry and the backward's; their `max_abs_err` also take
+phase 18's.
 """
 
 from __future__ import annotations
@@ -336,8 +354,33 @@ import subprocess
 import sys
 import time
 
-import numpy as np
-import torch
+
+def share_bytecode() -> str:
+    """A bytecode cache for this process and the ones it starts, in a temporary
+    directory removed at exit. Where the Python installation holds no
+    `__pycache__` and PYTHONDONTWRITEBYTECODE is set (a read-only install),
+    every process that imports torch and the port compiles their sources
+    again, ~10 s each on an H100 host, and the run starts a dozen; the prefix
+    leaves the installation untouched. An environment that sets
+    PYTHONPYCACHEPREFIX keeps its own."""
+    import atexit
+    import shutil
+    import tempfile
+
+    if not os.environ.get("PYTHONPYCACHEPREFIX"):
+        root = tempfile.mkdtemp(prefix="chip_smoke_pycache_")
+        atexit.register(shutil.rmtree, root, ignore_errors=True)
+        os.environ["PYTHONPYCACHEPREFIX"] = sys.pycache_prefix = root
+        os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+        sys.dont_write_bytecode = False
+    return os.environ["PYTHONPYCACHEPREFIX"]
+
+
+if __name__ == "__main__":  # before torch: this process writes the cache its children read
+    share_bytecode()
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 SEEDS = (0, 1, 2)
 TIMED_RUNS = 25
@@ -437,6 +480,7 @@ def _check_finite(name, tensors) -> None:
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card")
+    share_bytecode()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5305,6 +5349,71 @@ def phase17_alone() -> dict:
     return phase_serving(smi.splitlines()[0])
 
 
+# Phase 18: the flagship run B mode of tools/torch_trained_workflow.py at cut
+# counts, run as a user runs it; the workflow prints its stages' JSON lines
+# to <out>/workflow.jsonl, which the phase reads.
+FLAGSHIP_CUT = ("--identities", "2", "--kimg", "0.05", "--kimg2", "0.1", "--metric-items", "32")
+FLAGSHIP_K1_SHAPE = [4, 4096, 96, 52]  # batch 4, the 64² render's rays, 96 + 96, C + 1
+
+
+def phase_flagship(smi: str) -> dict:
+    """Phase 18 (see the module's docstring)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        out = os.path.join(root, "out")
+        p = subprocess.run([sys.executable, "tools/torch_trained_workflow.py", "--run", "flagship",
+                            "--out", out, "--root", os.path.join(root, "work"), "--stages",
+                            "dataset,k1,gan,resume", *FLAGSHIP_CUT],
+                           cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                           text=True, timeout=900)
+        if p.returncode:
+            sys.stderr.write(p.stdout[-3000:] + p.stderr[-6000:])
+            raise RuntimeError(f"flagship run: the workflow failed (rc {p.returncode})")
+        recs = {}
+        with open(os.path.join(out, "workflow.jsonl")) as f:
+            for ln in f:
+                rec = json.loads(ln)
+                recs.setdefault(rec["stage"], []).append(rec)
+        stats, fids = ([json.loads(ln) for ln in open(os.path.join(out, name)) if ln.strip()]
+                       for name in ("torch_flagship_runB_stats.jsonl",
+                                    "torch_flagship_runB_metric_fid.jsonl"))
+        grids = sorted(os.listdir(os.path.join(out, "img")))
+    k1, res = recs["k1"][0], recs["resume_check"][0]
+    if (k1["dtype"] != "torch.bfloat16" or k1["vals"] != [FLAGSHIP_K1_SHAPE] * 2
+            or k1["step_launches"] != [1, 1, 0] or not k1["finite"]
+            or k1["fwd_max_abs_err"] > 1e-3 or k1["bwd_err_of_max_grad"] > 1e-2):
+        raise RuntimeError(f"flagship run: the k1 stage {k1}")
+    values = [v for r in stats for v in r.values()] + [r["results"]["fid"] for r in fids]
+    if not all(np.isfinite(values)) or min(res["rows"]) < 1 or len(fids) != 2 or not grids:
+        raise RuntimeError(f"flagship run: stats {stats}, fid {fids}, grids {grids}")
+    if (len(stats) != sum(res["rows"]) or res["fid_kimg"] != [r["kimg"] for r in fids]
+            or abs(res["resumed_ada_p"] - res["leg1_last"]["ada_p"]) > res["one_update"]):
+        raise RuntimeError(f"flagship run: the resume {res}")
+    stage_s = {r["stage"]: r["wall_s"] for r in recs.get("dataset", []) + recs["gan"]
+               + recs["resume"]}
+    wall = time.perf_counter() - t0
+    print(f"flagship run: k1 stage bf16 {k1['vals'][0]} x 2, K1 {k1['step_launches']} in its "
+          f"step, forward err {k1['fwd_max_abs_err']:.3g} (<= 1e-3), backward "
+          f"{k1['bwd_err_of_max_grad']:.3g} x max|grad| (<= 1e-2), unsorted rays coarse / fine "
+          f"{k1['rays_unsorted_coarse_fine']} of {4 * 4096}; {len(stats)} stats rows "
+          f"({res['rows'][0]} + {res['rows'][1]}), FID {[round(r['results']['fid'], 1) for r in fids]} "
+          f"at kimg {res['fid_kimg']}, resumed at step {res['resumed_step']} ada_p "
+          f"{res['resumed_ada_p']:.6g} (leg 1's last {res['leg1_last']['ada_p']:.6g}); "
+          f"grids {grids}; stages {', '.join(f'{k} {v:.1f} s' for k, v in stage_s.items())}; "
+          f"phase 18 in {wall:.1f} s ({smi})", flush=True)
+    return {"k1": k1, "resume": res, "stage_s": stage_s, "wall_s": wall}
+
+
+def phase18_alone() -> dict:
+    """Phase 18 on its own (device, build):
+    `python3 -c "import chip_smoke as cs; cs.phase18_alone()"`."""
+    smi = phase_device()
+    phase_build()
+    return phase_flagship(smi.splitlines()[0])
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
@@ -5324,6 +5433,7 @@ def main() -> None:
     tools = phase_tools(smi.splitlines()[0])
     dp = phase_parallel(smi.splitlines()[0], off["video"]["flagship"].pop("frames"))
     serve = phase_serving(smi.splitlines()[0])
+    fl = phase_flagship(smi.splitlines()[0])
     off["video"]["ref_compat"].pop("frames")
     main_path, b1 = k["timing"][3], k["timing"][1]  # the frame runs K1 at B=3
     kb = tr["k1_backward"]
@@ -5338,7 +5448,7 @@ def main() -> None:
                            *(v["k1_err"] for v in off["video"].values()),
                            *met["counted"]["k1_err"].values(), inv["k1"]["fwd_err"],
                            ed["k1"]["fwd_err"], ed["viz"]["k1"]["fwd_err"], arch["k1_err"],
-                           tools["eval"]["k1_err"]),
+                           tools["eval"]["k1_err"], fl["k1"]["fwd_max_abs_err"]),
         "ms": main_path["ms"],
         "plain_ms": main_path["plain_ms"],
         "eager_ms": main_path["eager_ms"],
@@ -5386,6 +5496,7 @@ def main() -> None:
         "exported_frame_ms": serve["exported_ms"],
         "eager_frame_ms": serve["eager_ms"],
         "op_dispatch": serve["op"],
+        "flagship_run_launches": fl["k1"]["step_launches"][0],
     }, {
         "name": "sort_integrate_backward",
         "route": "cuda",
@@ -5393,7 +5504,8 @@ def main() -> None:
         "replaces": "ide3d_tpu/ops/pallas/ray_march.py:121",
         "autodiff_of": "ide3d_tpu/render/integration.py:85",
         "launches": sum(n[1] for n in tr["full"]["launches"]),
-        "max_abs_err": max(kb["max_abs_err"], inv["k1"]["bwd_err"], ed["k1"]["bwd_err"]),
+        "max_abs_err": max(kb["max_abs_err"], inv["k1"]["bwd_err"], ed["k1"]["bwd_err"],
+                           fl["k1"]["bwd_err_of_max_grad"]),
         "max_abs_err_is": "relative to max|grad|",
         "ms": kb["ms"],
         "plain_ms": kb["plain_ms"],
@@ -5419,6 +5531,7 @@ def main() -> None:
                             "plain_step": par["full"]["plain_step_launches"][1]},
         "parallel_launches": parallel_launches(dp, 1),
         "parallel_step_ms": {"data_parallel": dp["dp_ms"], "plain": dp["plain_ms"]},
+        "flagship_run_launches": fl["k1"]["step_launches"][1],
     }, {
         "name": "sort_integrate_double_backward",
         "route": "cuda",

@@ -15,7 +15,8 @@ and runs the G-first train step with lazy R1 (train/gan.py) with averaged
 gradients; the ADA p-controller is fed from the steps' sign statistics,
 averaged over the ranks and read back every 4 steps. Rank 0 writes the G_ema
 sample grids, the snapshots (io/checkpoint.py), the interval means of the
-global batch to stats.jsonl and the metrics; at every snapshot the ranks'
+global batch to stats.jsonl (every 100 steps, and the last steps' means where
+a run ends between two) and the metrics; at every snapshot the ranks'
 G, D and G_ema are checked equal bit for bit. `--resume` (read by rank 0 and
 broadcast) restores G, D, G_ema, both optimizers, pl_mean, the step and
 ada_p. `--metrics fid,kid` evaluates G_ema at every snapshot and at the end
@@ -130,6 +131,7 @@ def _train(group, args):
         state.step = int(meta.get("step", 0))
         ada_p = float(meta.get("ada_p", 0.0))
         ada = AdaState(p=ada_p, rt_accum=(0.0, 0.0))
+        log(f"resumed {args.resume}: step {state.step}, ada_p {ada_p!r}")
     mesh.replicate(group, state.G, state.D, state.G_ema)
     if args.fixed_ada_p is not None:
         ada_p = args.fixed_ada_p
@@ -190,11 +192,22 @@ def _train(group, args):
     next_grid = cur_img
     t_start = time.time()
     sign_buf = []  # the steps' sign statistics, read back at the controller's update
+    unlogged = 0  # steps since the last stats line
+
+    def write_stats(keys):
+        line = {"kimg": cur_img / 1000, "time_h": (time.time() - t_start) / 3600,
+                "ada_p": ada_p, **{k: acc.mean(k) for k in sorted(keys)}}
+        acc.reset()
+        if main_rank:
+            print(json.dumps(line))
+            with open(os.path.join(args.outdir, "stats.jsonl"), "a") as f:
+                f.write(json.dumps(line) + "\n")
 
     while cur_img < args.kimg * 1000:
         state, stats = step_fn(state, next(loader), gen, ada_p)
         cur_img += args.batch
         acc.update(stats)
+        unlogged += 1
         if not args.no_ada and args.fixed_ada_p is None:
             # Keep the device scalars and read them every 4 steps: a readback
             # per step would wait for each step to finish before the next is queued.
@@ -208,13 +221,8 @@ def _train(group, args):
                 ada_p = float(ada.p)
 
         if cur_img % (args.batch * 100) == 0:  # interval means (R1 fires on a sub-interval)
-            line = {"kimg": cur_img / 1000, "time_h": (time.time() - t_start) / 3600,
-                    "ada_p": ada_p, **{k: acc.mean(k) for k in sorted(stats)}}
-            acc.reset()
-            if main_rank:
-                print(json.dumps(line))
-                with open(os.path.join(args.outdir, "stats.jsonl"), "a") as f:
-                    f.write(json.dumps(line) + "\n")
+            write_stats(stats)
+            unlogged = 0
         if cur_img >= next_grid:
             if main_rank:
                 save_grid(cur_img)
@@ -230,6 +238,8 @@ def _train(group, args):
         ada = ada_update(ada, args.batch * len(sign_buf), target=args.ada_target,
                          speed_kimg=args.ada_speed, p_max=args.ada_pmax)
         ada_p = float(ada.p)
+    if unlogged:  # ended mid-interval: the last steps' means, at the final ada_p
+        write_stats(stats)
     save("snapshot-final")
     eval_metrics(cur_img / 1000)
     loader.close()

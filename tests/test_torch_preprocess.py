@@ -491,7 +491,9 @@ TOOL_IMPORTS = (
     "ide3d_tpu_torch.render.camera", "ide3d_tpu_torch.utils.seg",
     "ide3d_tpu_torch.data.dataset", "ide3d_tpu_torch.models.discriminator",
     "ide3d_tpu_torch.models.generator", "ide3d_tpu_torch.ops.ray_march",
-    "ide3d_tpu_torch.render.renderer", "ide3d_tpu_torch.train.gan")
+    "ide3d_tpu_torch.render.renderer", "ide3d_tpu_torch.train.gan", "torch_train_gan_dtype",
+    "ide3d_tpu_torch.apps.train_gan", "ide3d_tpu_torch.parallel.mesh",
+    "ide3d_tpu_torch.train.augment")
 
 
 def test_new_modules_import_no_jax():

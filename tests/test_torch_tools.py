@@ -215,13 +215,13 @@ def test_tools_default_to_cuda(tool, monkeypatch):
 
 
 def test_tools_import_no_jax():
-    """The three tools (and the workflow script) import nothing of jax or
-    ide3d_tpu, at the top or inside a function. What they import is imported
+    """The three tools (and the workflow script and its dtype leg) import
+    nothing of jax or ide3d_tpu, at the top or inside a function. What they import is imported
     without either by tests/test_torch_preprocess.py::test_new_modules_import_no_jax."""
     from test_torch_preprocess import TOOL_IMPORTS
 
     imported = set()
-    for name in TOOLS + ("torch_trained_workflow",):
+    for name in TOOLS + ("torch_trained_workflow", "torch_train_gan_dtype"):
         tree = ast.parse(open(os.path.join(REPO, "tools", name + ".py")).read())
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
@@ -238,3 +238,159 @@ def test_tools_import_no_jax():
     port = {m for m in imported if m.startswith("ide3d_tpu_torch")}
     assert port <= set(TOOL_IMPORTS), sorted(port - set(TOOL_IMPORTS))
     assert set(TOOLS) < set(TOOL_IMPORTS)
+
+
+# ------------------------------------------------------- the flagship run B mode
+
+
+def _flags(argv):
+    assert argv[:2] == ["-m", "ide3d_tpu_torch.apps.train_gan"] and len(argv) % 2 == 0
+    return dict(zip(argv[2::2], argv[3::2]))
+
+
+def test_flagship_train_gan_argv_is_run_b(monkeypatch):
+    """The flagship mode's two legs pass TRAINING.md run B's flags plus
+    --device, and no --r1-gamma or --pl-weight: train_gan's own parser reads
+    them as γ auto (None) and PL off."""
+    import torch_trained_workflow as wf
+    from ide3d_tpu_torch.apps import train_gan
+    from ide3d_tpu_torch.parallel import mesh
+
+    run_b = {"--data": os.path.join("d", "img"), "--seg": os.path.join("d", "seg"),
+             "--outdir": "r", "--preset": "full", "--resolution": "512", "--batch": "4",
+             "--snap-kimg": "4", "--grid-kimg": "2", "--metrics": "fid", "--metric-items": "500",
+             "--ada-speed": "100", "--device": "cuda"}
+    leg1 = wf.flagship_gan_argv("d", "r", 12, "cuda")
+    leg2 = wf.flagship_gan_argv("d", "r", 20, "cuda", resume="r/snapshot-final")
+    assert _flags(leg1) == {**run_b, "--kimg": "12"}
+    assert _flags(leg2) == {**run_b, "--kimg": "20", "--resume": "r/snapshot-final"}
+    monkeypatch.setattr(mesh, "dp_world", lambda batch, device_type: 1)
+    monkeypatch.setattr(mesh, "launch", lambda fn, world, device_type, args: args)
+    for argv, kimg in ((leg1, 12), (leg2, 20)):
+        args = train_gan.main(argv[2:])
+        assert (args.r1_gamma, args.pl_weight, args.kimg, args.batch) == (None, 0.0, kimg, 4)
+
+
+def test_flagship_resume_check():
+    """Leg 2 must append to leg 1's stats and FID lines and resume at leg 1's
+    last ada_p within one controller update (4 steps x batch 4 / speed 100k)."""
+    import torch_trained_workflow as wf
+
+    leg1 = [{"kimg": 0.4, "ada_p": 0.004}, {"kimg": 0.8, "ada_p": 0.008}]
+    leg2 = [{"kimg": 1.2, "ada_p": 0.012}]
+    fid1, fid2 = [{"kimg": 0.8}], [{"kimg": 1.2}]
+    log = "r1-gamma (auto): 13.1\nresumed /x/snapshot-final: step 200, ada_p 0.00815\n"
+    rec = wf.resume_check(leg1, leg1 + leg2, fid1, fid1 + fid2, log)
+    assert rec["rows"] == [2, 1] and rec["resumed_step"] == 200 and rec["one_update"] == 1.6e-4
+    assert rec["fid_kimg"] == [0.8, 1.2] and rec["leg2_first"] == leg2[0]
+    for bad in ((leg1, leg2, fid1, fid1 + fid2, log),  # leg 1's rows rewritten
+                (leg1, leg1 + leg2, fid1, fid1, log),  # no FID line added
+                (leg1, leg1 + leg2, fid1, fid1 + fid2, log.replace("0.00815", "0.0082"))):
+        with pytest.raises(SystemExit):
+            wf.resume_check(*bad)
+
+
+def test_compare_flagship_tables(tmp_path, monkeypatch, capsys):
+    """compare_sphere_runs --run flagship on the JAX run-B record and a made-up
+    port record: every FID and stats row, each run's largest |logit|, and the
+    grid std of a synthetic 4x4 grid PNG (its uint8 std, per-channel std and
+    tile spread)."""
+    import PIL.Image
+
+    import compare_sphere_runs as cmp
+
+    docs = tmp_path / "docs"
+    (docs / "img").mkdir(parents=True)
+    for name in ("flagship_runB_stats.jsonl", "flagship_runB_metric_fid.jsonl",
+                 "img/flagship_runB_fakes_16kimg.png"):
+        (docs / name).symlink_to(os.path.join(REPO, "docs", name))
+    kimgs = (0.4, 4.0, 8.0, 12.0, 16.0, 20.0)
+    with open(docs / "torch_flagship_runB_stats.jsonl", "w") as f:
+        for k in kimgs:
+            f.write(json.dumps({"kimg": k, "time_h": k / 60, "ada_p": k / 100, "real_logits": 5 + k,
+                                "fake_logits": -5 - k, "loss_d": 0.5, "loss_g": 1.0,
+                                "real_signs": 0.9}) + "\n")
+    with open(docs / "torch_flagship_runB_metric_fid.jsonl", "w") as f:
+        for k in kimgs[1:]:
+            f.write(json.dumps({"kimg": k, "results": {"fid": 100 + k}}) + "\n")
+    grid = np.random.RandomState(0).randint(0, 256, (64, 64, 3)).astype(np.uint8)
+    PIL.Image.fromarray(grid).save(docs / "img" / "torch_flagship_runB_fakes_4kimg.png")
+    monkeypatch.setattr(cmp, "DOCS", str(docs))
+    cmp.main(["--run", "flagship"])
+    out = capsys.readouterr().out
+    jax_fid = {4: "99.39", 8: "405.9", 12: "105.5", 16: "87.93", 20: "94.05"}
+    for k, j in jax_fid.items():
+        assert f"| {k} | {j} | {cmp.fmt(100.0 + k, 4)} |" in out
+    jax_rows = {0.4: "| 0.4 | 8.47 | 5.4 | -8.56 | -5.4 | 0.0488 | 0.5 | 1 | 0.9 | 0.004 | 0.004 |",
+                20: "| 20 | 10.4 | 25 | -12.9 | -25 | 4.6e-05 | 0.5 | 1 | 0.9 | 0.198 | 0.2 |"}
+    for line in jax_rows.values():
+        assert line in out
+    assert sum(ln.startswith(f"| {k:g} | ") and ln.count("|") == 12
+               for k in kimgs for ln in out.splitlines()) == len(kimgs)
+    assert "| JAX | 69.5 | 16 | 32.6 | -69.5 |" in out and "| port | 25 | 20 | 25 | -25 |" in out
+    tiles = grid.astype(np.float64).reshape(4, 16, 4, 16, 3).transpose(0, 2, 1, 3, 4)
+    spread = tiles.reshape(16, 16, 16, 3).std(0).mean()
+    chan = np.mean([grid[..., c].std() for c in range(3)])
+    assert (f"| 4 | 19.8 | — | — | — | {cmp.fmt(grid.std())} | {cmp.fmt(chan)} | "
+            f"{cmp.fmt(spread)} |") in out
+    assert "| 16 | — | 16.8 | 1.34 | 0.617 | — | — | — |" in out and "| 18 | 13.4 |" in out
+
+
+def test_grid_std_reads_a_flat_colour_grid_as_collapsed(tmp_path):
+    """TRAINING.md's grid std (all uint8 values) reads a grid of one flat
+    colour as the spread of that colour's R, G and B (~22 here): it cannot see
+    a mean-colour collapse. The per-channel std reads it as 0, and reads a
+    grid with structure in every tile as high."""
+    import PIL.Image
+
+    import compare_sphere_runs as cmp
+
+    flat = np.broadcast_to(np.array([139, 128, 86], np.uint8), (64, 64, 3))
+    PIL.Image.fromarray(np.ascontiguousarray(flat)).save(tmp_path / "flat.png")
+    ramp = np.broadcast_to(np.linspace(0, 255, 16).astype(np.uint8)[None, :, None], (16, 16, 3))
+    PIL.Image.fromarray(np.ascontiguousarray(np.tile(ramp, (4, 4, 1)))).save(tmp_path / "ramp.png")
+    grid, chan, spread = cmp.grid_std(str(tmp_path / "flat.png"))
+    assert grid > 20 and chan == 0 and spread == 0
+    grid, chan, spread = cmp.grid_std(str(tmp_path / "ramp.png"))
+    assert chan > 70 and spread == 0
+
+
+def test_k1_check_limits_follow_dtype():
+    """The K1 stage holds bf16 values to PERF.md §2's bf16 limits (forward 1e-3,
+    backward 1e-2 x max|grad|), fp32 to 1e-4 and 1e-4, and names what it applied."""
+    import torch_trained_workflow as wf
+
+    rec = {"fwd_max_abs_err": 5e-4, "bwd_err_of_max_grad": 5e-3, "finite": True}
+    assert wf.k1_verdict({**rec, "dtype": "torch.bfloat16"})["fwd_max_abs_err"] == 5e-4
+    with pytest.raises(SystemExit, match=r"at torch.float32: forward 0.0001, backward 0.0001 x"):
+        wf.k1_verdict({**rec, "dtype": "torch.float32"})
+    with pytest.raises(SystemExit, match=r"at torch.bfloat16: forward 0.001, backward 0.01 x"):
+        wf.k1_verdict({**rec, "dtype": "torch.bfloat16", "bwd_err_of_max_grad": 2e-2})
+    with pytest.raises(SystemExit):
+        wf.k1_verdict({**rec, "dtype": "torch.bfloat16", "finite": False})
+    assert wf.k1_verdict({**rec, "fwd_max_abs_err": 9e-5, "bwd_err_of_max_grad": 9e-5,
+                          "dtype": "torch.float32"})
+
+
+def test_dtype_leg_forces_every_compute_dtype():
+    """tools/torch_train_gan_dtype.py's patch reaches G, D and ADA however
+    their configs are made (a preset's copy, D's config with its own dtype),
+    reports what they compute in, reports no D where none was built, and
+    leaves the classes as they were."""
+    import dataclasses
+
+    import torch_train_gan_dtype as tool
+    from ide3d_tpu_torch.apps.common import PRESETS
+    from ide3d_tpu_torch.models.discriminator import Discriminator, DiscriminatorConfig
+    from ide3d_tpu_torch.train.augment import AugmentConfig
+
+    with tool.forced_dtype("bfloat16") as built:
+        Ide3dGenerator(dataclasses.replace(PRESETS["tiny"], img_resolution=32))
+        AugmentConfig()
+        assert tool.compute_dtypes(built) == {"G": ["bfloat16"], "D": [], "ada": ["bfloat16"]}
+        Discriminator(DiscriminatorConfig(img_resolution=32, img_channels=25, channel_base=512,
+                                          channel_max=32, dtype="float32"))
+    assert tool.compute_dtypes(built) == {"G": ["bfloat16"], "D": ["bfloat16"], "ada": ["bfloat16"]}
+    assert dataclasses.replace(PRESETS["tiny"]).dtype == "float32"
+    assert AugmentConfig().compute_dtype == "bfloat16" and DiscriminatorConfig().dtype == "bfloat16"
+    assert len(built["G"]) == len(built["D"]) == len(built["ada"]) == 1

@@ -143,8 +143,9 @@ def _write_dataset(root, n=4):
 
 def test_train_gan_cli_runs_snapshots_and_resumes(tmp_path):
     """The CLI on the CPU (tiny preset): two steps, a sample grid, the final
-    snapshot and --metrics fid (pixel detector) at its kimg; --resume of it
-    restores every state dict, the step and ada_p."""
+    snapshot, --metrics fid (pixel detector) at its kimg and the stats row of
+    the steps that end mid-interval; --resume of it restores every state dict,
+    the step and ada_p."""
     from ide3d_tpu_torch.apps.train_gan import main
 
     common = _write_dataset(tmp_path) + [
@@ -158,6 +159,9 @@ def test_train_gan_cli_runs_snapshots_and_resumes(tmp_path):
     (line,) = [json.loads(s) for s in (tmp_path / "run" / "metric-fid.jsonl").read_text().splitlines()]
     assert line["kimg"] == 0.004 and line["num_items"] == 4 and np.isfinite(line["results"]["fid"])
     assert ".metric_cache" in files
+    (row,) = [json.loads(s) for s in (tmp_path / "run" / "stats.jsonl").read_text().splitlines()]
+    assert row["kimg"] == 0.004 and row["ada_p"] == 0.3  # the 2 steps end mid-interval
+    assert all(np.isfinite(v) for v in row.values())
     resumed = main(common + ["--outdir", str(tmp_path / "resumed"),
                              "--resume", str(tmp_path / "run" / "snapshot-final")])
     assert resumed.step == 2
