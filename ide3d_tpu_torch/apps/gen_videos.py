@@ -39,6 +39,7 @@ from ..parallel import mesh
 from ..parallel.render import make_frame_sharded_chunks
 from ..render.camera import CANONICAL_POSE_25, look_at_pose, make_label_25
 from ..render.renderer import RenderParams
+from ..utils.profiling import span
 from ..utils.seg import mask2color
 
 
@@ -115,6 +116,7 @@ def render_chunks(G, work_ws: np.ndarray, work_cs: np.ndarray, rp: RenderParams,
     chunk_fn = make_frame_sharded_chunks(
         G.synthesis, functools.partial(post, image_mode=image_mode, R=R), group, rp)
 
+    @span("video.chunk")
     def launch(start):
         ws_k = torch.as_tensor(work_ws[start:start + K], device=dev)
         cs_k = torch.as_tensor(work_cs[start:start + K], device=dev)
@@ -139,11 +141,13 @@ def render_chunks(G, work_ws: np.ndarray, work_cs: np.ndarray, rp: RenderParams,
         if not group.is_main:
             continue
         if done is not None:
-            done.synchronize()
-        img8 = img8.numpy()
-        ex8 = None if ex8 is None else ex8.numpy()
-        for i in range(img8.shape[0]):
-            tiles.append(img8[i] if ex8 is None else np.concatenate([img8[i], ex8[i]], axis=1))
+            with span("video.wait"):
+                done.synchronize()
+        with span("video.tiles"):
+            img8 = img8.numpy()
+            ex8 = None if ex8 is None else ex8.numpy()
+            for i in range(img8.shape[0]):
+                tiles.append(img8[i] if ex8 is None else np.concatenate([img8[i], ex8[i]], axis=1))
     return tiles
 
 

@@ -37,6 +37,7 @@ import torch
 from ..models.encoder import HybridEncoder
 from ..models.generator import Ide3dGenerator
 from ..render.camera import CANONICAL_POSE_25, look_at_pose, make_label_25
+from ..utils.profiling import span
 from ..utils.seg import mask2color, mask2onehot
 
 
@@ -78,7 +79,8 @@ def make_edit_step(G: Ide3dGenerator, E: HybridEncoder, lock_appearance: bool = 
     n_geo = G.synthesis.num_ws_geo
 
     def edit_from_render(gen_img, seg_pm, w_prev, c):
-        rec_ws = E(gen_img, seg_pm) + G.mapping.w_avg
+        with span("painter.encode"):
+            rec_ws = E(gen_img, seg_pm) + G.mapping.w_avg
         if lock_appearance:
             rec_ws = torch.cat([rec_ws[:, :n_geo], w_prev[:, n_geo:]], dim=1)
         img, seg = G.synthesis(rec_ws, c, return_seg=True)
@@ -158,6 +160,7 @@ class PainterSession:
             self._table_w = ws
         return self._table
 
+    @span("painter.to_host")
     def _to_host(self, img: torch.Tensor, seg: torch.Tensor) -> Tuple[np.ndarray, np.ndarray]:
         return _img_u8(img), mask2color(seg)[0].to(torch.uint8).cpu().numpy()
 
@@ -175,6 +178,7 @@ class PainterSession:
         self._frame_cache = (self.w, key, img)
         return self._to_host(img, seg)
 
+    @span("painter.edit")
     @torch.inference_mode()
     def edit(self, mask: np.ndarray, yaw: float = 0.0,
              pitch: float = 0.0) -> Tuple[np.ndarray, np.ndarray]:

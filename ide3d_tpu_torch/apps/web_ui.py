@@ -38,6 +38,7 @@ import traceback
 
 import numpy as np
 
+from ..utils.profiling import span
 from ..utils.seg import COLOR_MAP, LABEL_LIST
 
 HTML = """<!doctype html>
@@ -213,6 +214,7 @@ _PALETTE_KEYS, _PALETTE_IDS = np.unique(
 _PALETTE_IDS = _PALETTE_IDS.astype(np.uint8)
 
 
+@span("web.png")
 def _png_b64(img_uint8: np.ndarray) -> str:
     import PIL.Image
 
@@ -346,6 +348,7 @@ class PainterWebApp:
 
     # ----------------------------------------------------------------- plumbing
 
+    @span("web.request")
     def handle(self, method: str, path: str, query: dict, body: bytes):
         """Route a request; returns (status, content_type, payload_bytes)."""
         if method == "GET" and path == "/":

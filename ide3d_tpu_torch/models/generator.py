@@ -56,6 +56,7 @@ from torch import nn
 
 from ..render.camera import create_cam2world_matrix, make_label_25, normalize_vecs
 from ..render.renderer import RenderParams, TriplaneRenderer
+from ..utils.profiling import span
 from .blocks import DTYPES, SegSynthesisBlock, SynthesisBlock
 from .encoder import Encoder
 from .feature_volume import FeatureVolume
@@ -306,9 +307,10 @@ class Ide3dSynthesisNetwork(nn.Module):
         [B, H, W, 3*(Cf+Cs)], the feature volume or None): everything of the
         frame that depends on the latent alone, so a caller may keep it across
         poses (the Painter's plane cache)."""
-        img_v, seg_v = self.generate_planes(ws, noise_mode, generator)
-        return (self.renderer.build_table(img_v.to(self.dtype), seg_v.to(self.dtype)),
-                self.volume(ws))
+        with span("G.planes"):
+            img_v, seg_v = self.generate_planes(ws, noise_mode, generator)
+            return (self.renderer.build_table(img_v.to(self.dtype), seg_v.to(self.dtype)),
+                    self.volume(ws))
 
     def forward(
         self,
@@ -337,23 +339,26 @@ class Ide3dSynthesisNetwork(nn.Module):
 
         planes, volume = self.plane_table(ws, noise_mode, noise_gen) if table is None else table
         cam2world = c[:, :16].reshape(-1, 4, 4).float()
-        rout = self.renderer.render_fine(self.renderer.render_coarse(
-            None, None, cam2world, rp, generator, table=planes, volume=volume), rp)
+        with span("G.render"):
+            rout = self.renderer.render_fine(self.renderer.render_coarse(
+                None, None, cam2world, rp, generator, table=planes, volume=volume), rp)
 
-        img, img_raw = self.finish(rout["feature"], ws, noise_mode, noise_gen)
+        with span("G.finish"):
+            img, img_raw = self.finish(rout["feature"], ws, noise_mode, noise_gen)
+            seg = self._upsample_seg(rout["seg"]) if return_all or return_seg else None
 
         if return_all:
             return {
                 "img": img,
                 "img_raw": img_raw,
-                "seg": self._upsample_seg(rout["seg"]),
+                "seg": seg,
                 "seg_raw": rout["seg"],
                 "depth": rout["depth"],
                 "weights_sum": rout["weights_sum"],
                 "feature": rout["feature"],
             }
         if return_seg:
-            return img, self._upsample_seg(rout["seg"])
+            return img, seg
         if return_raw:
             return img, img_raw
         return img

@@ -51,6 +51,7 @@ from ..models.discriminator import Discriminator
 from ..models.generator import GeneratorConfig, Ide3dGenerator
 from ..ops import conv2d_gradfix
 from ..parallel.mesh import Group, all_reduce_grads, draw, global_draws, rows
+from ..utils.profiling import span
 from .augment import AugmentConfig, augment_d_input
 
 Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # (img, raw_up, seg), NHWC
@@ -291,6 +292,7 @@ def make_gan_train_step(tcfg: GanTrainConfig, group: Optional[Group] = None):
     def d_in_for(gen, ada_p):
         return functools.partial(d_input, tcfg=tcfg, gen=gen, ada_p=ada_p)
 
+    @span("gan.g_phase")
     def g_phase(state: GanTrainState, batch, gen, ada_p):
         G, D = state.G, state.D
         z = draw(torch.randn, (batch["img"].shape[0], G.z_dim), generator=gen,
@@ -325,6 +327,7 @@ def make_gan_train_step(tcfg: GanTrainConfig, group: Optional[Group] = None):
             torch._foreach_add_(ema, _ema_params(G), alpha=1.0 - tcfg.ema_beta)
         return stats, fakes
 
+    @span("gan.d_phase")
     def d_phase(state: GanTrainState, batch, gen, ada_p, fakes: Optional[Triple]):
         G, D = state.G, state.D
         c = batch["c"]
@@ -337,9 +340,10 @@ def make_gan_train_step(tcfg: GanTrainConfig, group: Optional[Group] = None):
         loss, stats = d_loss(D, fakes, real, c, d_in_for(gen, ada_p), group)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         if state.step % tcfg.r1_interval == 0:
-            r1 = r1_penalty(D, real, c, d_in_for(gen, ada_p), group)
+            with span("gan.r1"):
+                r1 = r1_penalty(D, real, c, d_in_for(gen, ada_p), group)
+                r1_grads = torch.autograd.grad(r1, params, allow_unused=True)
             scale = tcfg.r1_gamma / 2.0 * tcfg.r1_interval
-            r1_grads = torch.autograd.grad(r1, params, allow_unused=True)
             grads = [g if r is None else (r * scale if g is None else g + scale * r)
                      for g, r in zip(grads, r1_grads)]
             stats["r1_penalty"] = r1.detach()
@@ -348,6 +352,7 @@ def make_gan_train_step(tcfg: GanTrainConfig, group: Optional[Group] = None):
         _apply_grads(params, grads, state.opt_d, group)
         return stats
 
+    @span("gan.step")
     @torch.enable_grad()  # whatever grad mode the caller is in
     def step(state: GanTrainState, batch: Dict[str, torch.Tensor], generator: torch.Generator,
              ada_p: float = 0.0):

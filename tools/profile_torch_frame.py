@@ -6,10 +6,13 @@ GeneratorConfig() with random weights (init(seed=0)), bf16, 96+96 samples.
 Prints, each from CUDA events (median over --frames frames):
   * the frame at batch 1 and at the gen_images batch of 3 yaws, with K1 and
     with K1's plain version in its place, in turns (K1, plain, plain, K1),
-  * the batch-3 frame split into its stages: planes (vb stack), coarse pass
-    (+ sample_pdf), fine pass (+ composite), raw head + superres + seg upsample,
-  * the kernels by device time over 3 frames (torch.profiler) and the device's
-    busy share of that window; the full table goes to <out>/profile_frame.txt.
+  * the kernels by device time over 3 batch-3 frames (torch.profiler) and the
+    device's busy share of that window; the full table goes to
+    <out>/profile_frame.txt,
+  * from the same profile, the device ms a frame of each of G's stages, the
+    rows of its spans (utils/profiling.span): `G.planes` (vb stack, table),
+    `G.render` (coarse and fine passes, K1), `G.finish` (raw head, superres,
+    seg upsample).
 Needs CUDA; fails without it.
 """
 
@@ -35,6 +38,8 @@ from ide3d_tpu_torch.render import renderer  # noqa: E402
 from ide3d_tpu_torch.render.camera import CANONICAL_POSE_25  # noqa: E402
 from ide3d_tpu_torch.render.renderer import RenderParams  # noqa: E402
 
+STAGES = ("G.planes", "G.render", "G.finish")
+
 
 def timed(fn, n: int) -> float:
     """Median ms of fn() over n runs, from CUDA events."""
@@ -47,29 +52,6 @@ def timed(fn, n: int) -> float:
         b.synchronize()
         out.append(a.elapsed_time(b))
     return statistics.median(out)
-
-
-def stages(G, ws, cams, rp) -> dict:
-    """One batch-3 frame split at its stage boundaries; ms per stage."""
-    S = G.synthesis
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-    ws3 = ws.expand(cams.shape[0], -1, -1)
-    ev[0].record()
-    img_v, seg_v = S.generate_planes(ws3)
-    ev[1].record()
-    st = S.renderer.render_coarse(img_v.to(S.dtype), seg_v.to(S.dtype),
-                                  cams[:, :16].reshape(-1, 4, 4).float(), rp)
-    ev[2].record()
-    rout = S.renderer.render_fine(st, rp)
-    ev[3].record()
-    feature = rout["feature"].permute(0, 3, 1, 2)
-    img_raw = S.raw_rgb(feature.to(S.dtype), ws3[:, len(S.voxel_block_resolutions) + 1]).float()
-    S.superresolve(feature, img_raw, ws3)
-    S._upsample_seg(rout["seg"])
-    ev[4].record()
-    ev[4].synchronize()
-    names = ("planes", "coarse", "fine", "sr+seg")
-    return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
 
 
 def main() -> None:
@@ -112,10 +94,6 @@ def run(G, cfg, args) -> None:
         print(f"frame {name}: K1 {res['K1']} ms, plain composite {res['plain']} ms "
               f"(median of {args.frames} each, in turns K1, plain, plain, K1)")
 
-    st = [stages(G, ws, cams3, rp) for _ in range(args.frames)]
-    print("stages batch 3 (median ms): " + ", ".join(
-        f"{k} {statistics.median(s[k] for s in st):.3f}" for k in st[0]))
-
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -125,7 +103,13 @@ def run(G, cfg, args) -> None:
             gen_images.synth_views(G, ws, cams3, rp)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows = prof.key_averages()
+    stage = {e.key: e.device_time_total / 1e3 / 3 for e in rows
+             if e.key in STAGES and e.device_type == torch.autograd.DeviceType.CPU}
+    print("stages batch 3 (device ms a frame, from the spans): " + ", ".join(
+        f"{k} {stage.get(k, float('nan')):.3f}" for k in STAGES))
+    events = [e for e in rows if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.is_user_annotation]  # a span's device row is no kernel
     dev_ms = sum(e.self_device_time_total for e in events) / 1e3
     print(f"profiler, 3 batch-3 frames: device busy {dev_ms:.3f} ms of {wall_ms:.3f} ms wall "
           f"({100 * dev_ms / wall_ms:.1f}%); top kernels by device time:")

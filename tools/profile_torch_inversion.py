@@ -43,7 +43,8 @@ def profiled(name: str, fn, steps: int, out_dir: str, prefix: str = "inversion")
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     avg = prof.key_averages()
-    kernels = [e for e in avg if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in avg if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]  # a span's device row is no kernel
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     print(f"{name}, {steps} steps under the profiler: {wall_ms / steps:.3f} ms a step on the host "
           f"clock, device busy {dev_ms / steps:.3f} ms a step ({100 * dev_ms / wall_ms:.1f}%), "

@@ -109,7 +109,8 @@ def main() -> None:
             compute_feature_stats_for_generator(opts, capture_all=True, capture_mean_cov=False)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.is_user_annotation]  # a span's device row is no kernel
     dev_ms = sum(e.self_device_time_total for e in events) / 1e3
     print(f"profiler, 4 batches of the loop: device busy {dev_ms:.3f} ms of {wall_ms:.3f} ms wall "
           f"({100 * dev_ms / wall_ms:.1f}%); top kernels by device time:")

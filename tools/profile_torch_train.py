@@ -58,7 +58,8 @@ def profiled(name: str, fn, out_dir: str) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     avg = prof.key_averages()
-    kernels = [e for e in avg if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in avg if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]  # a span's device row is no kernel
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     print(f"profiler, one {name} step: device busy {dev_ms:.3f} ms of {wall_ms:.3f} ms wall "
           f"({100 * dev_ms / wall_ms:.1f}%); top kernels by device time:")
