@@ -34,7 +34,7 @@ Phases, one line each; any failure ends the run with a non-zero exit:
                handle() (no socket): meta, seed, two cached views, a new-view
                edit, two strokes, a view of the edited latent, a 12-frame orbit.
                Each request: status 200, 512^2 PNGs, finite images, and its
-               exact K1 launches and generate_planes calls. A warm-up round
+               exact K1 launches and plane_table calls. A warm-up round
                with the finiteness checks, then timed rounds (wall time per
                route, PNG encoding included); CUDA-event times of a stroke, an
                uncached edit, a cached view and E alone; a cached view against
@@ -183,7 +183,7 @@ Phases, one line each; any failure ends the run with a non-zero exit:
                weight is 0 in fp32), the fp32 copy card vs CPU (<= 3e-5 x
                scale), one
                Painter round through PainterWebApp.handle after a warm-up (K1
-               and generate_planes per request as phase 6; every frame rendered
+               and plane_table per request as phase 6; every frame rendered
                from the cached table and volume within 1 uint8 level of
                G.synthesis), one NADA step at batch 2 with geometry frozen (K1
                (2, 0), the volume without gradient and bit-identical). The
@@ -731,7 +731,7 @@ def phase_frame() -> dict:
 
 
 # The Painter's requests, in order: (route, method, path, query, payload,
-# K1 launches, generate_planes calls). Every G pass launches K1 once; a view
+# K1 launches, plane_table calls). Every G pass launches K1 once; a view
 # of the latent whose planes are cached generates none. "mask" payloads get
 # the painted mask of that step.
 PAINTER_REQUESTS = (
@@ -800,7 +800,7 @@ def painter_round(app, counts: dict, check: bool) -> list:
             if status != 200:
                 raise RuntimeError(f"painter {route}: status {status}: {reply[:300]!r}")
             if got != (k1, planes):
-                raise RuntimeError(f"painter {route}: K1 launches, generate_planes calls {got}, "
+                raise RuntimeError(f"painter {route}: K1 launches, plane_table calls {got}, "
                                    f"want {(k1, planes)}")
             out = json.loads(reply)
             rows.append((route, ms, *got, bwd))
@@ -868,20 +868,20 @@ def phase_painter(G, smi: str) -> dict:
 
     S = G.synthesis
     counts = {"planes": 0}
-    generate_planes = S.generate_planes
+    plane_table = S.plane_table
 
     def counted_planes(*args, **kw):
         counts["planes"] += 1
-        return generate_planes(*args, **kw)
+        return plane_table(*args, **kw)
 
-    S.generate_planes = counted_planes
+    S.plane_table = counted_planes
     try:
         _, video_ext = painter_round(app, counts, check=True)  # warm-up, finiteness checks
         torch.cuda.reset_peak_memory_stats()
         rounds = [painter_round(app, counts, check=False)[0] for _ in range(PAINTER_ROUNDS)]
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
     finally:
-        del S.generate_planes
+        del S.plane_table
     wall, launches = {}, {}
     for rows in rounds:
         for route, ms, k1, *_ in rows:
@@ -969,7 +969,7 @@ def phase_painter(G, smi: str) -> dict:
           f"CUDA-event ms of the session call (median of {EVENT_RUNS}) "
           f"{json.dumps({k: round(v, 3) for k, v in ev.items()})}; peak {peak_gib:.3f} GiB; "
           f"init {init_s:.1f} s; K1 launches per request {json.dumps(launches)}, "
-          f"{k1_round} a round, generate_planes as listed; orbit video .{video_ext}; seg colour -> "
+          f"{k1_round} a round, plane_table as listed; orbit video .{video_ext}; seg colour -> "
           f"ids {lookup_ms:.3f} ms (nearest-colour search {search_ms:.3f} ms); cached view vs G.synthesis "
           f"{view_err:.3g}; stroke vs uncached edit {stroke_err}; fp32 E cuda vs cpu "
           f"{e_err:.3g} at scale {e_scale:.3g}", flush=True)
@@ -3755,7 +3755,7 @@ def _u8(img: torch.Tensor) -> np.ndarray:
 
 def arch_painter(G) -> dict:
     """One Painter round (phase 6's requests) through PainterWebApp.handle on
-    the hybrid G, after a warm-up round: route wall ms, K1 and generate_planes
+    the hybrid G, after a warm-up round: route wall ms, K1 and plane_table
     per request (the plane cache carries the volume, so the flagship's counts
     hold). Every frame the session renders in the round, against G.synthesis
     of its ws and c with the planes and the volume made anew: within 1 uint8
@@ -3770,11 +3770,11 @@ def arch_painter(G) -> dict:
     app = PainterWebApp(PainterSession(G=G, E=E.to("cuda").eval(), device="cuda"))
     S = G.synthesis
     counts, frames = {"planes": 0}, []
-    generate_planes, forward = S.generate_planes, S.forward
+    plane_table, forward = S.plane_table, S.forward
 
     def counted_planes(*args, **kw):
         counts["planes"] += 1
-        return generate_planes(*args, **kw)
+        return plane_table(*args, **kw)
 
     def recorded(ws, c, *args, **kw):
         out = forward(ws, c, *args, **kw)
@@ -3782,14 +3782,14 @@ def arch_painter(G) -> dict:
             frames.append((ws.clone(), c.clone(), (out[0] if isinstance(out, tuple) else out).clone()))
         return out
 
-    S.generate_planes = counted_planes
+    S.plane_table = counted_planes
     try:
         painter_round(app, counts, check=True)
         torch.cuda.synchronize()
         S.forward = recorded
         rows, _ = painter_round(app, counts, check=False)
     finally:
-        del S.generate_planes
+        del S.plane_table
         S.__dict__.pop("forward", None)
     gap = 0
     with torch.inference_mode():
@@ -3992,7 +3992,7 @@ def phase_arch(smi: str) -> dict:
           f"batch-3 frame: {hyb['grid_sample_3d'][0]} calls, {hyb['grid_sample_3d'][1]:.3f} ms alone; "
           f"fp32 cuda vs cpu {hyb['fp32']['err']} at scale "
           f"{hyb['fp32']['scale']} (limit 3e-5 x scale); Painter round (wall ms, K1, "
-          f"generate_planes) {pnt['rows']}, {pnt['frames']} cached-table frames within "
+          f"plane_table) {pnt['rows']}, {pnt['frames']} cached-table frames within "
           f"{pnt['gap']} uint8 level of G.synthesis; NADA step (geometry frozen, batch 2) "
           f"{nad['ms']:.3f} ms, K1 {nad['launches']}, the volume without gradient", flush=True)
     print(f"arch: flagship GeneratorConfig() frames in this call {json.dumps(frames(flag))}; "

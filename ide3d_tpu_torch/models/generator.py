@@ -57,6 +57,7 @@ from torch import nn
 from ..render.camera import create_cam2world_matrix, make_label_25, normalize_vecs
 from ..render.renderer import RenderParams, TriplaneRenderer
 from ..utils.profiling import span
+from . import plane_graphs
 from .blocks import DTYPES, SegSynthesisBlock, SynthesisBlock
 from .encoder import Encoder
 from .feature_volume import FeatureVolume
@@ -306,11 +307,24 @@ class Ide3dSynthesisNetwork(nn.Module):
         """(the planes of `ws` in the compute dtype as the renderer's table
         [B, H, W, 3*(Cf+Cs)], the feature volume or None): everything of the
         frame that depends on the latent alone, so a caller may keep it across
-        poses (the Painter's plane cache)."""
+        poses (the Painter's plane cache). In inference on the card it is
+        replayed from a CUDA graph (`plane_graphs`)."""
         with span("G.planes"):
-            img_v, seg_v = self.generate_planes(ws, noise_mode, generator)
-            return (self.renderer.build_table(img_v.to(self.dtype), seg_v.to(self.dtype)),
-                    self.volume(ws))
+            return plane_graphs.stage(self, ws, noise_mode, generator)
+
+    def plane_stage(
+        self, ws: torch.Tensor, noise_mode: str = "const",
+        generator: Optional[torch.Generator] = None,
+    ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """plane_table's operations, eager."""
+        img_v, seg_v = self.generate_planes(ws, noise_mode, generator)
+        return (self.renderer.build_table(img_v.to(self.dtype), seg_v.to(self.dtype)),
+                self.volume(ws))
+
+    def plane_stage_modules(self) -> list:
+        """The modules whose parameters and buffers plane_stage reads."""
+        mods = [getattr(self, f"vb{res}") for res in self.voxel_block_resolutions]
+        return mods if self.feature_volume is None else mods + [self.feature_volume]
 
     def forward(
         self,
