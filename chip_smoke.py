@@ -190,8 +190,15 @@ Phases, one line each; any failure ends the run with a non-zero exit:
                flagship at num_steps 64, fine_steps 128 beside 96 + 96 (event
                ms, batch 1), K1 on the 64 + 128 inputs against plain. SG3
                GeneratorConfig(sr_arch="sg3"): frames as the hybrid's, each
-               filtered_lrelu call of a batch-3 frame timed alone, the fp32
-               copy card vs CPU. Encoder GeneratorConfig(use_encoder=True):
+               filtered_lrelu call of a batch-3 frame timed alone (the fused
+               kernel); at the video path's batch of 8, two frame batches
+               with filtered_lrelu's counters from 0 (9 launches and no plain
+               call each), and each of the stack's 9 calls on its card
+               tensors through the kernel against filtered_lrelu_plain (fp32
+               <= 1e-5 x max|out|; bf16 no further from the fp32 op than the
+               plain bf16 op plus 2^-8 x max|out|), timed plain, fused,
+               fused, plain; the fp32 copy card vs CPU. Encoder
+               GeneratorConfig(use_encoder=True):
                G(cond_img=<its own render>) (event ms, K1 once),
                infer_face_animation_avatar --style-image for 8 frames (K1 once
                a frame), metric_main.calc_metric fid with cond_render at 32
@@ -340,7 +347,18 @@ data-parallel and the plain step in turns) to the backward's. Phase 17 adds
 `eager_frame_ms` (medians in turns, batch 3) and `op_dispatch` (medians per
 route) to K1's entry. Phase 18 adds `flagship_run_launches` (the k1 stage's
 train step) to K1's entry and the backward's; their `max_abs_err` also take
-phase 18's.
+phase 18's. The fourth entry, `filtered_lrelu` (csrc/filtered_lrelu.cu), is
+phase 13's SG3 G at the video path's batch of 8, bf16: `launches` and
+`plain_calls` over its two counted frame batches (9 and 0 each), `ms` the
+kernel's graph time summed over the stack's 9 calls, `eager_ms` / `host_ms`
+/ `plain_ms` the event and host times of one eager call summed over them,
+`bound_ms` their bytes over 3.35 TB/s and `fir_bound_ms` their polyphase FIR
+FLOPs over 67 TFLOP/s, `max_abs_err` the fp32 kernel against the fp32 plain
+op relative to max|out|, `bf16_err` / `plain_bf16_err` the bf16 kernel's and
+the plain bf16 op's against the fp32 op on the same input, `calls` each
+call's numbers, `b3_frame_calls_ms` the batch-3 frame's (calls, summed ms).
+Phase 13's SG3 part alone: `python3 -c "import chip_smoke as cs;
+cs.phase13_sg3_alone()"`.
 """
 
 from __future__ import annotations
@@ -510,6 +528,26 @@ def phase_build() -> None:
     print(f"build: torch {torch.__version__} cuda {torch.version.cuda}; "
           f"{lib.name} in {time.perf_counter() - t0:.1f} s"
           f"{' (cached)' if not log else ''}; ptxas: {' | '.join(used) or 'n/a'}", flush=True)
+    build_flrelu()
+
+
+def build_flrelu() -> None:
+    """Builds csrc/filtered_lrelu.cu; prints each instantiation's registers,
+    shared memory and any spill from ptxas."""
+    from ide3d_tpu_torch import _build
+
+    t0 = time.perf_counter()
+    lib, log = _build.build("filtered_lrelu")
+    used, kernel = [], ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            kernel = ln.split("'")[1] if "'" in ln else ln
+        elif "spill" in ln and kernel and not ln.strip().startswith("0 bytes"):
+            used.append(f"{kernel}: {ln.strip()}")
+        elif "Used" in ln and kernel:
+            used.append(f"{kernel}: {ln.split(':', 1)[1].strip()}")
+    print(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s{' (cached)' if not log else ''}; "
+          f"ptxas: {' | '.join(used) or 'n/a'}", flush=True)
 
 
 def k1_inputs(gen, dtype, sigma=None, B=1, sorted_halves=False):
@@ -3749,6 +3787,223 @@ def op_ms(mod, name: str, frame) -> tuple:
                                for a, kw in calls)
 
 
+FLRELU_BATCH = 8  # the video path's chunk
+FLRELU_TOL = 1e-5  # fp32 kernel against the fp32 plain op, x max|out| (the card tests' rule)
+BF16_ROUNDING = 2.0**-8  # one bf16 rounding of max|out|
+FP32_CUDA_CORE_FLOPS_PER_MS = 67e9  # H100 SXM, fp32 on the CUDA cores, 67 TFLOP/s
+
+
+def flrelu_counts(fn) -> tuple:
+    """(fn(), (filtered_lrelu's kernel launches, its plain calls)), both set to
+    0 just before the call and read just after it."""
+    from ide3d_tpu_torch.ops.filtered_lrelu import filtered_lrelu
+
+    filtered_lrelu.launches = filtered_lrelu.plain = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (filtered_lrelu.launches, filtered_lrelu.plain)
+
+
+def flrelu_bytes(x, kw, out) -> int:
+    """Bytes one call must move: x, the bias and the filters read once, the
+    output written once."""
+    return sum(t.numel() * t.element_size() for t in (x, kw["b"], kw["fu"], kw["fd"], out)
+               if t is not None)
+
+
+def flrelu_fir_flops(x, kw) -> int:
+    """The call's polyphase FIR FLOPs (2 a multiply-add): rows then columns up,
+    taps / up a pixel of the upsampled grid (no product with an inserted
+    zero), rows then columns down, taps a pixel."""
+    fu, fd, up, down = kw["fu"], kw["fd"], kw["up"], kw["down"]
+    if fu is None and fd is None:
+        return 0
+    N, C, n, _ = x.shape
+    tu, td = (1 if f is None else f.numel() for f in (fu, fd))
+    px0, px1 = kw["padding"][:2]
+    u = n * up + px0 + px1 - tu + 1
+    o = (u - td) // down + 1
+    per_phase = -(-tu // up)
+    return 2 * N * C * (n * u * per_phase + u * u * per_phase + u * o * td + o * o * td)
+
+
+def arch_flrelu(G) -> dict:
+    """The SG3 G's filtered_lrelu at the video path's shapes: two bf16 frame
+    batches of FLRELU_BATCH (random latents, the front camera), each with the
+    counters set to 0 just before it (9 launches and no plain call each), the
+    first's 9 calls recorded. On each call's card tensors: the kernel against
+    filtered_lrelu_plain in fp32 (<= FLRELU_TOL x max|out|) and in bf16 (both
+    against the fp32 plain op on the same bf16 input: the kernel's error at
+    most the plain bf16 op's plus BF16_ROUNDING x max|out|); then each call
+    alone, event-timed (eager_ms), plain, fused, fused, plain, and the
+    kernel's device time from a CUDA graph of 20 calls; its bytes over
+    3.35 TB/s and FIR FLOPs over the fp32 CUDA-core rate."""
+    from ide3d_tpu_torch.models import layers_sg3
+    from ide3d_tpu_torch.ops.filtered_lrelu import filtered_lrelu, filtered_lrelu_plain
+    from ide3d_tpu_torch.render.camera import CANONICAL_POSE_25
+
+    B = FLRELU_BATCH
+    z = torch.as_tensor(np.random.RandomState(1).randn(B, G.cfg.z_dim), dtype=torch.float32,
+                        device="cuda")
+    c = torch.as_tensor(CANONICAL_POSE_25, device="cuda")[None].repeat(B, 1)
+    calls = []
+
+    def record(x, fu, fd, b, **kw):
+        if len(calls) < 9:
+            calls.append((x.clone(), dict(kw, fu=fu, fd=fd, b=b.clone())))
+        return filtered_lrelu(x, fu, fd, b, **kw)
+
+    counts = []
+    layers_sg3.filtered_lrelu = record
+    try:
+        with torch.inference_mode():
+            ws = G.mapping(z, c)
+            for _ in range(2):
+                counts.append(flrelu_counts(lambda: G.synthesis(ws, c))[1])
+    finally:
+        layers_sg3.filtered_lrelu = filtered_lrelu
+    if counts != [(9, 0)] * 2 or len(calls) != 9:
+        raise RuntimeError(f"sg3 B={B}: filtered_lrelu (launches, plain) {counts} a frame batch, "
+                           f"{len(calls)} calls recorded; want (9, 0) and 9")
+    rows = []
+    for x, kw in calls:
+        kw = dict(kw, padding=tuple(kw["padding"]))
+        xf, kwf = x.float(), dict(kw, b=kw["b"].float())
+        with torch.inference_mode():
+            got32, want32 = filtered_lrelu(xf, **kwf), filtered_lrelu_plain(xf, **kwf)
+            got, plain = filtered_lrelu(x, **kw), filtered_lrelu_plain(x, **kw)
+        _check_finite("filtered_lrelu on a frame's inputs", (got32, want32, got, plain))
+        scale = float(want32.abs().max())
+        err32, err, err_plain = (float((a.float() - want32).abs().max()) for a in (got32, got, plain))
+        if err32 > FLRELU_TOL * scale or err > err_plain + BF16_ROUNDING * scale:
+            raise RuntimeError(f"filtered_lrelu kernel vs plain at x {tuple(x.shape)} up {kw['up']} "
+                               f"down {kw['down']}: fp32 err {err32}, bf16 err {err} (plain bf16 "
+                               f"{err_plain}) at max|out| {scale}")
+        with torch.inference_mode():
+            def run_plain():
+                return filtered_lrelu_plain(x, **kw)
+
+            def run_fused():
+                return filtered_lrelu(x, **kw)
+
+            p1, _ = eager_ms(run_plain)
+            f1, h1 = eager_ms(run_fused)
+            f2, h2 = eager_ms(run_fused)
+            p2, _ = eager_ms(run_plain)
+            fg = graph_ms([run_fused], 20)
+        nbytes = flrelu_bytes(x, kw, got)
+        rows.append({"shape": list(x.shape), "up": kw["up"], "down": kw["down"],
+                     "plain_ms": [p1, p2], "eager_ms": [f1, f2], "host_ms": [h1, h2], "ms": fg,
+                     "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_MS,
+                     "fir_bound_ms": flrelu_fir_flops(x, kw) / FP32_CUDA_CORE_FLOPS_PER_MS,
+                     "err_fp32": err32 / scale, "err_bf16": err / scale,
+                     "err_plain_bf16": err_plain / scale})
+    total = {k: sum(r[k] for r in rows) for k in ("ms", "bytes", "bound_ms", "fir_bound_ms")}
+    total.update({k: sum(statistics.mean(r[k]) for r in rows)
+                  for k in ("plain_ms", "eager_ms", "host_ms")})
+    return {"batch": B, "launches": counts, "calls": rows, **total,
+            "max_abs_err": max(r["err_fp32"] for r in rows),
+            "bf16_err": max(r["err_bf16"] for r in rows),
+            "plain_bf16_err": max(r["err_plain_bf16"] for r in rows)}
+
+
+def arch_sg3(snap: str, cfg) -> dict:
+    """Phase 13's SG3 G (`GeneratorConfig(sr_arch="sg3")` read back from the
+    snapshot at `snap`): its frames (arch_frames), each filtered_lrelu call
+    of a batch-3 frame alone on the kernel (op_ms), arch_flrelu at the video
+    path's batch, and the fp32 copy card vs CPU."""
+    from ide3d_tpu_torch.apps import common
+    from ide3d_tpu_torch.models import layers_sg3
+    from ide3d_tpu_torch.models.generator import GeneratorConfig
+
+    G = common.load_generator(snap, "cuda")
+    if G.cfg != cfg or G.synthesis.sg3_sr is None:
+        raise RuntimeError(f"sg3 snapshot read back as {G.cfg}")
+    sg3 = arch_frames(G, "sg3")
+    sg3["filtered_lrelu"] = op_ms(layers_sg3, "filtered_lrelu", sg3.pop("frame"))
+    del sg3["ws"]
+    sg3["flrelu"] = arch_flrelu(G)
+    del G
+    sg3["fp32"] = fp32_card_vs_cpu(GeneratorConfig(sr_arch="sg3", dtype="float32"), 0, "sg3")
+    return sg3
+
+
+def flrelu_line(f: dict) -> str:
+    return (f"filtered_lrelu kernel at B={f['batch']} bf16, the stack's 9 calls: (launches, plain) "
+            f"a frame batch {f['launches']}; each call alone, event ms plain / fused / fused / plain "
+            f"{[[round(v, 4) for v in (*r['plain_ms'][:1], *r['eager_ms'], r['plain_ms'][1])] for r in f['calls']]}; "
+            f"a chunk: plain {f['plain_ms']:.3f} ms, fused {f['eager_ms']:.4f} ms (graph "
+            f"{f['ms']:.4f}, host {f['host_ms']:.4f}), ratio {f['eager_ms'] / f['plain_ms']:.4f}; "
+            f"bytes {f['bytes'] / 1e9:.4f} GB, bound {f['bound_ms']:.4f} ms ({100 * f['bound_ms'] / f['ms']:.1f}% "
+            f"of the graph time), FIR bound {f['fir_bound_ms']:.4f} ms; fp32 err "
+            f"{f['max_abs_err']:.3g} x max|out| (limit {FLRELU_TOL:g}), bf16 err {f['bf16_err']:.3g} "
+            f"(plain bf16 {f['plain_bf16_err']:.3g}) x max|out|")
+
+
+def flrelu_entry(sg3: dict) -> dict:
+    """The `kernels` line's entry for the fused filtered_lrelu (phase 13's SG3 G)."""
+    f = sg3["flrelu"]
+    return {
+        "name": "filtered_lrelu",
+        "route": "cuda",
+        "source": "ide3d_tpu_torch/csrc/filtered_lrelu.cu",
+        "replaces": None,
+        "launches": sum(n[0] for n in f["launches"]),
+        "plain_calls": sum(n[1] for n in f["launches"]),
+        "max_abs_err": f["max_abs_err"],
+        "max_abs_err_is": "fp32, relative to max|out|",
+        "bf16_err": f["bf16_err"],
+        "plain_bf16_err": f["plain_bf16_err"],
+        "ms": f["ms"],
+        "plain_ms": f["plain_ms"],
+        "eager_ms": f["eager_ms"],
+        "host_ms": f["host_ms"],
+        "bound_ms": f["bound_ms"],
+        "bound_by": "bytes",
+        "fir_bound_ms": f["fir_bound_ms"],
+        "library_ms": None,
+        "bytes": f["bytes"],
+        "bound_share": f["bound_ms"] / f["ms"],
+        "batch": f["batch"],
+        "calls": f["calls"],
+        "b3_frame_calls_ms": sg3["filtered_lrelu"],
+    }
+
+
+def phase13_sg3_alone() -> dict:
+    """Phase 13's SG3 G on its own (device, build):
+    `python3 -c "import chip_smoke as cs; cs.phase13_sg3_alone()"`. Prints the
+    arch line's SG3 part and a `kernels` line with the filtered_lrelu entry."""
+    import tempfile
+
+    from ide3d_tpu_torch.models.generator import GeneratorConfig
+
+    smi = phase_device()
+    phase_build()
+    cfg = GeneratorConfig(sr_arch="sg3")
+    with tempfile.TemporaryDirectory() as root:
+        snap = os.path.join(root, "sg3")
+        write_snapshot(snap, cfg, seed=0)
+        sg3 = arch_sg3(snap, cfg)
+    print(f"arch: sg3 ({smi.splitlines()[0]}): {sg3_line(sg3)}", flush=True)
+    print(json.dumps({"kernels": [flrelu_entry(sg3)]}))
+    return sg3
+
+
+def sg3_line(sg3: dict) -> str:
+    return (f"sg3 GeneratorConfig(sr_arch=sg3) bf16: frames {json.dumps(arch_frame_rows(sg3))}, "
+            f"K1 vs plain {sg3['k1_err']:.3g}, filtered_lrelu (the fused kernel) in a batch-3 frame: "
+            f"{sg3['filtered_lrelu'][0]} calls, {sg3['filtered_lrelu'][1]:.3f} ms alone; "
+            f"{flrelu_line(sg3['flrelu'])}; fp32 cuda vs cpu {sg3['fp32']['err']} at scale "
+            f"{sg3['fp32']['scale']}")
+
+
+def arch_frame_rows(r: dict) -> dict:
+    return {f"batch_{B}": {"median_ms": round(r[B]["median_ms"], 3),
+                           "range_ms": [round(min(r[B]["ms"]), 3), round(max(r[B]["ms"]), 3)],
+                           "peak_gib": round(r[B]["peak_gib"], 3)} for B in (1, 3)}
+
+
 def _u8(img: torch.Tensor) -> np.ndarray:
     return ((img + 1.0) * 127.5).round().clamp(0, 255).to(torch.uint8).cpu().numpy().astype(np.int32)
 
@@ -3933,7 +4188,6 @@ def phase_arch(smi: str) -> dict:
     import tempfile
 
     from ide3d_tpu_torch.apps import common
-    from ide3d_tpu_torch.models import layers_sg3
     from ide3d_tpu_torch.models.generator import GeneratorConfig, Ide3dGenerator
     from ide3d_tpu_torch.render import renderer
 
@@ -3968,23 +4222,11 @@ def phase_arch(smi: str) -> dict:
         fine = arch_fine_steps(G_flag, flag.pop("ws"))
         del G_flag, flag["frame"]
 
-        G = common.load_generator(snaps["sg3"], "cuda")
-        if G.cfg != cfgs["sg3"] or G.synthesis.sg3_sr is None:
-            raise RuntimeError(f"sg3 snapshot read back as {G.cfg}")
-        sg3 = arch_frames(G, "sg3")
-        sg3["filtered_lrelu"] = op_ms(layers_sg3, "filtered_lrelu", sg3.pop("frame"))
-        del sg3["ws"]
-        del G
-        sg3["fp32"] = fp32_card_vs_cpu(GeneratorConfig(sr_arch="sg3", dtype="float32"), 0, "sg3")
+        sg3 = arch_sg3(snaps["sg3"], cfgs["sg3"])
         enc = arch_encoder(snaps["encoder"], root)
 
-    def frames(r):
-        return {f"batch_{B}": {"median_ms": round(r[B]["median_ms"], 3),
-                               "range_ms": [round(min(r[B]["ms"]), 3), round(max(r[B]["ms"]), 3)],
-                               "peak_gib": round(r[B]["peak_gib"], 3)} for B in (1, 3)}
-
     print(f"arch: hybrid GeneratorConfig(use_feature_volume=True) bf16 96+96 ({smi}): "
-          f"frames {json.dumps(frames(hyb))} (event ms over {ARCH_RUNS}, K1 once a frame), the "
+          f"frames {json.dumps(arch_frame_rows(hyb))} (event ms over {ARCH_RUNS}, K1 once a frame), the "
           f"volume alone {hyb['volume_ms']:.3f} ms; K1 vs plain on a frame's inputs "
           f"{hyb['k1_err']:.3g}, with the density moved to a median of {SIGMA_MEDIAN:g} "
           f"(by {hyb['sigma_shift']:+.4g}; the flagship's by {flag['sigma_shift']:+.4g}) "
@@ -3995,15 +4237,11 @@ def phase_arch(smi: str) -> dict:
           f"plane_table) {pnt['rows']}, {pnt['frames']} cached-table frames within "
           f"{pnt['gap']} uint8 level of G.synthesis; NADA step (geometry frozen, batch 2) "
           f"{nad['ms']:.3f} ms, K1 {nad['launches']}, the volume without gradient", flush=True)
-    print(f"arch: flagship GeneratorConfig() frames in this call {json.dumps(frames(flag))}; "
+    print(f"arch: flagship GeneratorConfig() frames in this call {json.dumps(arch_frame_rows(flag))}; "
           f"batch-3 frames in turns, event ms (medians of {ARCH_RUNS}) flagship "
           f"{[round(t, 3) for t in ab['flagship']]}, hybrid {[round(t, 3) for t in ab['hybrid']]}; "
           f"fine_steps on it, the three-yaw batch: event ms {json.dumps({k: [round(t, 3) for t in v] for k, v in fine['ms'].items()})} (in turns 96, 64, 64, 96); "
-          f"K1 at halves 64+128 vs plain {fine['k1_err']:.3g}; sg3 GeneratorConfig(sr_arch=sg3) "
-          f"bf16: frames {json.dumps(frames(sg3))}, K1 vs plain {sg3['k1_err']:.3g}, filtered_lrelu "
-          f"in a batch-3 frame: {sg3['filtered_lrelu'][0]} calls, {sg3['filtered_lrelu'][1]:.3f} ms "
-          f"alone; fp32 cuda vs "
-          f"cpu {sg3['fp32']['err']} at scale {sg3['fp32']['scale']}", flush=True)
+          f"K1 at halves 64+128 vs plain {fine['k1_err']:.3g}; {sg3_line(sg3)}", flush=True)
     print(f"arch: encoder GeneratorConfig(use_encoder=True): G(cond_img=its render) "
           f"{enc['cond_ms']:.3f} ms (camera head {[round(v, 4) for v in enc['cam']]}), K1 "
           f"{enc['cond_launches']}; infer_face_animation_avatar --style-image "
@@ -5560,7 +5798,7 @@ def main() -> None:
                        "wavelet_ms": par["full"]["warp"],
                        "wavelet_peak_gib": par["full"]["warp_peak_gib"]},
         "parallel_launches": parallel_launches(dp, 2),
-    }]}))
+    }, flrelu_entry(arch["sg3"])]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -16,8 +16,9 @@ A program fixes its device when it is traced (a CPU program would run the
 plain K1 on the card), so each platform gets its own pair, traced with G on
 that device; `load_artifact` loads the pair of the device asked for and never
 another. K1 is recorded as the operator `ide3d_tpu_torch::sort_integrate`
-(ops/ray_march.py), so loading imports that module, and nothing of the
-models.
+(ops/ray_march.py) and an SG3 G's `filtered_lrelu` as
+`ide3d_tpu_torch::filtered_lrelu` (ops/filtered_lrelu.py), so loading
+imports those modules, and nothing of the models.
 
     meta = export_generator(G, out_dir, truncation_psi=0.7)
     art = load_artifact(out_dir, device="cuda")
@@ -157,7 +158,7 @@ class GeneratorArtifact:
 def load_artifact(out_dir: str, device: torch.device | str = "cuda") -> GeneratorArtifact:
     """The artifact's programs for `device`'s type. Raises ValueError when the
     artifact holds none for it (it never runs another platform's program)."""
-    from ..ops import ray_march  # noqa: F401 (registers K1's operator)
+    from ..ops import filtered_lrelu, ray_march  # noqa: F401 (register the operators)
 
     with open(os.path.join(out_dir, "meta.json")) as f:
         meta = json.load(f)

@@ -282,10 +282,11 @@ class Ide3dSynthesisNetwork(nn.Module):
         else:
             base = len(self.voxel_block_resolutions) + 2  # first superres row (= 9)
         if self.sg3_sr is not None:
-            x = feature.to(self.dtype)
-            for i in range(self.sg3_sr.num_layers):
-                x = getattr(self.sg3_sr, f"layer{i}")(x, ws[:, base + i])
-            return self.sg3_sr.torgb(x, ws[:, base + self.sg3_sr.num_layers]).float()
+            with span("G.sg3"):
+                x = feature.to(self.dtype)
+                for i in range(self.sg3_sr.num_layers):
+                    x = getattr(self.sg3_sr, f"layer{i}")(x, ws[:, base + i])
+                return self.sg3_sr.torgb(x, ws[:, base + self.sg3_sr.num_layers]).float()
         x, img = feature, img_raw
         for i, res in enumerate(self.block_resolutions):
             r0 = base + 2 * i

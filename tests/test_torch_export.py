@@ -54,6 +54,8 @@ for k, v in (("ws", ws), ("img", img), ("seg", seg)):
 print(json.dumps({
     "k1_nodes": sum("ide3d_tpu_torch.sort_integrate" in str(n.target)
                     for n in art._frame.graph.nodes if n.op == "call_function"),
+    "flrelu_nodes": sum("ide3d_tpu_torch.filtered_lrelu" in str(n.target)
+                        for n in art._frame.graph.nodes if n.op == "call_function"),
     "metadata_asserts": sum("_assert_tensor_metadata" in str(n.target)
                             for m in (art._mapping, art._frame) for n in m.graph.nodes),
     "imported": sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "ide3d_tpu")
@@ -157,6 +159,35 @@ def test_artifact_refuses_a_platform_it_lacks(artifact, monkeypatch):
     monkeypatch.setattr(torch.export, "load", refuse)
     with pytest.raises(ValueError, match="none for cuda"):
         load_artifact(artifact["dir"], device="cuda")
+
+
+def test_sg3_artifact_records_filtered_lrelu_as_operators(tmp_path):
+    """A tiny SG3 G's CPU artifact: its frame records each of the stack's
+    filtered_lrelu calls (its layers and ToRGB) as one operator node; a fresh process that imports
+    no model code loads it and renders the eager G's frame bit for bit."""
+    G = Ide3dGenerator(GeneratorConfig(**TINY, sr_arch="sg3",
+                                       render=RenderParams(img_size=16, num_steps=8)))
+    G = G.init(seed=0).eval()
+    z = np.random.RandomState(1).randn(1, G.z_dim).astype(np.float32)
+    c = np.asarray(jrender.CANONICAL_POSE_25, np.float32)[None]
+    with torch.no_grad():
+        ws = G.mapping(torch.from_numpy(z), torch.from_numpy(c), truncation_psi=TRUNC)
+        eager = (ws, *G.synthesis(ws, torch.from_numpy(c), return_seg=True))
+    out, tmp = str(tmp_path / "artifact"), str(tmp_path / "io")
+    os.makedirs(tmp)
+    export_generator(G, out, truncation_psi=TRUNC)
+    np.save(f"{tmp}/z.npy", z)
+    np.save(f"{tmp}/c.npy", c)
+    proc = subprocess.run([sys.executable, "-c", LOAD_AND_RENDER, out, tmp], cwd=REPO,
+                          capture_output=True, text=True, timeout=120,
+                          env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert proc.returncode == 0, proc.stderr
+    loaded = json.loads(proc.stdout.splitlines()[-1])
+    calls = G.synthesis.sg3_sr.num_layers + 1
+    assert (loaded["flrelu_nodes"], loaded["k1_nodes"], loaded["imported"]) == (calls, 1, [])
+    for name, want in zip(("ws", "img", "seg"), eager):
+        got = torch.from_numpy(np.load(f"{tmp}/{name}.npy"))
+        assert torch.equal(got, want), f"{name}: max |diff| {(got - want).abs().max()}"
 
 
 @pytest.mark.parametrize("noise", [False, True])
